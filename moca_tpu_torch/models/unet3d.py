@@ -1,0 +1,445 @@
+"""VideoCrafter2-class 3D U-Net denoiser.
+
+Port of moca_tpu/models/unet3d.py for the shipped configuration
+(configs/inference_t2v_512_v2.0.yaml:22-50): spatial and temporal
+transformers, temporal convolutions, the `addition_attention` init
+transformer and `fps_cond`.
+
+Layout: channels-last [B, T, H, W, C] at the public call, spatial layers on
+the flattened (B*T) frame axis, temporal layers on the flattened (B*H*W)
+pixel axis; per-frame timesteps [B, T] are first class. Convolutions take
+channels-last input and permute to torch's layout inside the module (with a
+channels-last memory format, so cuDNN sees NHWC and no copy is made).
+
+Module names follow the upstream checkpoint keys that
+moca_tpu/models/convert.py `convert_unet` reads (e.g.
+`input_blocks.1.1.transformer_blocks.0.attn1.to_q`, including the
+`temopral_conv` spelling), so `convert_unet(model.state_dict(), cfg,
+prefix="")` gives the JAX tree and an upstream state dict loads directly.
+Not yet ported: relative-position and causal temporal attention, image
+cross-attention and `tempspatial_aware`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from moca_tpu_torch.ops.attention import (
+    dot_product_attention, packed_attention, use_packed_tiny,
+)
+from moca_tpu_torch.ops.norms import GroupNorm32, LayerNorm32
+from moca_tpu_torch.schedule import timestep_embedding
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """Mirrors configs/inference_t2v_512_v2.0.yaml:22-50 (defaults = shipped).
+    The compute type is the parameters' type."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 320
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (4, 2, 1)
+    channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_head_channels: int = 64
+    transformer_depth: int = 1
+    temporal_transformer_depth: int = 1
+    context_dim: int = 1024
+    use_linear: bool = True
+    temporal_conv: bool = True
+    tempspatial_aware: bool = False
+    temporal_attention: bool = True
+    temporal_selfatt_only: bool = True
+    use_relative_position: bool = False
+    use_causal_attention: bool = False
+    temporal_length: int = 16
+    addition_attention: bool = True
+    use_image_attention: bool = False
+    fps_cond: bool = True
+    dropout: float = 0.0
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.model_channels * 4
+
+
+def unet_plan(cfg: UNetConfig):
+    """(input_blocks, middle_block, output_blocks) as lists of layer dicts
+    {kind, in_ch, out_ch, heads, dim_head} — a copy of the reference's walk
+    of openaimodel3d.py:374-532."""
+    mc = cfg.model_channels
+
+    def attn(kind, ch):
+        return dict(kind=kind, in_ch=ch, out_ch=ch, heads=ch // cfg.num_head_channels,
+                    dim_head=cfg.num_head_channels)
+
+    input_blocks = [[dict(kind="conv_in", in_ch=cfg.in_channels, out_ch=mc)]]
+    input_chans = [mc]
+    ch, ds = mc, 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            layers = [dict(kind="res", in_ch=ch, out_ch=mult * mc)]
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                layers.append(attn("spatial", ch))
+                if cfg.temporal_attention:
+                    layers.append(attn("temporal", ch))
+            input_blocks.append(layers)
+            input_chans.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            input_blocks.append([dict(kind="down", in_ch=ch, out_ch=ch)])
+            input_chans.append(ch)
+            ds *= 2
+
+    middle_block = [dict(kind="res", in_ch=ch, out_ch=ch), attn("spatial", ch)]
+    if cfg.temporal_attention:
+        middle_block.append(attn("temporal", ch))
+    middle_block.append(dict(kind="res", in_ch=ch, out_ch=ch))
+
+    output_blocks = []
+    for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
+        for i in range(cfg.num_res_blocks + 1):
+            ich = input_chans.pop()
+            layers = [dict(kind="res", in_ch=ch + ich, out_ch=mult * mc)]
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                layers.append(attn("spatial", ch))
+                if cfg.temporal_attention:
+                    layers.append(attn("temporal", ch))
+            if level and i == cfg.num_res_blocks:
+                layers.append(dict(kind="up", in_ch=ch, out_ch=ch))
+                ds //= 2
+            output_blocks.append(layers)
+    return input_blocks, middle_block, output_blocks
+
+
+# ---------------------------------------------------------------------------
+# Channels-last convolutions
+# ---------------------------------------------------------------------------
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d on channels-last [N, H, W, C] input and output."""
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d on channels-last [N, T, H, W, C] input and output."""
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+
+
+class Conv1x1AsLinear(nn.Conv1d):
+    """A kernel-1 Conv1d (the checkpoint's [out, in, 1] weight) applied to
+    channels-last tokens: exactly a Linear (the init transformer is built
+    without use_linear, openaimodel3d.py:379-389 -> attention.py:297-300)."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__(in_features, out_features, 1)
+
+    def forward(self, x):
+        return F.linear(x, self.weight[..., 0], self.bias)
+
+
+# ---------------------------------------------------------------------------
+# Building blocks
+# ---------------------------------------------------------------------------
+
+def _norm_act_conv(ch: int, conv: nn.Module, dropout_slot: bool) -> nn.Sequential:
+    """(GroupNorm+SiLU, [Dropout,] Conv) with the upstream Sequential indices:
+    SiLU is fused into the fp32 norm and its slot (and dropout's) is empty."""
+    mods = [GroupNorm32(32, ch, act="silu"), nn.Identity()]
+    if dropout_slot:
+        mods.append(nn.Identity())
+    return nn.Sequential(*mods, conv)
+
+
+class TemporalConvBlock(nn.Module):
+    """4x (GN -> SiLU -> Conv3d(3,1,1)) plus identity; input [B, T, H, W, C]."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        conv = lambda: Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
+        self.conv1 = _norm_act_conv(channels, conv(), dropout_slot=False)
+        self.conv2 = _norm_act_conv(channels, conv(), dropout_slot=True)
+        self.conv3 = _norm_act_conv(channels, conv(), dropout_slot=True)
+        self.conv4 = _norm_act_conv(channels, conv(), dropout_slot=True)
+
+    def forward(self, x):
+        return self.conv4(self.conv3(self.conv2(self.conv1(x)))) + x
+
+
+class ResBlock(nn.Module):
+    """Residual block with timestep embedding and temporal conv.
+    Input [BT, H, W, C], emb [BT, E]."""
+
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, temporal_conv: bool):
+        super().__init__()
+        self.in_layers = _norm_act_conv(in_ch, Conv2d(in_ch, out_ch, 3, padding=1),
+                                        dropout_slot=False)
+        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_dim, out_ch))
+        self.out_layers = _norm_act_conv(out_ch, Conv2d(out_ch, out_ch, 3, padding=1),
+                                         dropout_slot=True)
+        self.skip_connection = (Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
+                                else nn.Identity())
+        if temporal_conv:
+            self.temopral_conv = TemporalConvBlock(out_ch)
+        self.temporal_conv = temporal_conv
+
+    def forward(self, x, emb, batch_size: int):
+        h = self.in_layers(x)
+        h = h + self.emb_layers(emb)[:, None, None, :].to(h.dtype)
+        h = self.skip_connection(x) + self.out_layers(h)
+        if self.temporal_conv:
+            bt, hh, ww, c = h.shape
+            v = self.temopral_conv(h.reshape(batch_size, bt // batch_size, hh, ww, c))
+            h = v.reshape(bt, hh, ww, c)
+        return h
+
+
+class CrossAttention(nn.Module):
+    """Multi-head self / text-cross attention (attention.py:43-127)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: int | None = None):
+        super().__init__()
+        inner = heads * dim_head
+        ctx_dim = query_dim if context_dim is None else context_dim
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_v = nn.Linear(ctx_dim, inner, bias=False)
+        self.to_out = nn.Sequential(nn.Linear(inner, query_dim))
+
+    def forward(self, x, context=None):
+        h, d = self.heads, self.dim_head
+        q = self.to_q(x)
+        ctx = x if context is None else context
+        k, v = self.to_k(ctx), self.to_v(ctx)
+        b, sq, sk = x.shape[0], x.shape[1], k.shape[1]
+        if context is None and use_packed_tiny(q, sq, sk, None, h * d):
+            return self.to_out(packed_attention(q, k, v, h))
+        out = dot_product_attention(q.view(b, sq, h, d), k.view(b, sk, h, d),
+                                    v.view(b, sk, h, d))
+        return self.to_out(out.reshape(b, sq, h * d))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.proj = nn.Linear(dim_in, dim_out * 2)
+
+    def forward(self, x):
+        x, gate = self.proj(x).chunk(2, dim=-1)
+        # flax's nn.gelu default (tanh approximation), as the reference port
+        return x * F.gelu(gate, approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward (attention.py:386-403); net = (GEGLU, Dropout, Linear)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Identity(),
+                                 nn.Linear(dim * mult, dim))
+
+    def forward(self, x):
+        return self.net(x)
+
+
+class BasicTransformerBlock(nn.Module):
+    """self-attn -> cross-attn (or second self-attn) -> GEGLU FF, pre-norm."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int | None):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.ff = FeedForward(dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim=context_dim)
+        self.norm1 = LayerNorm32(dim)
+        self.norm2 = LayerNorm32(dim)
+        self.norm3 = LayerNorm32(dim)
+
+    def forward(self, x, context=None):
+        x = self.attn1(self.norm1(x)) + x
+        x = self.attn2(self.norm2(x), context=context) + x
+        return self.ff(self.norm3(x)) + x
+
+
+class SpatialTransformer(nn.Module):
+    """Per-frame transformer over the h*w tokens; input [BT, H, W, C]."""
+
+    def __init__(self, ch: int, heads: int, dim_head: int, depth: int, context_dim: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = GroupNorm32(32, ch, eps=1e-6)
+        self.proj_in = nn.Linear(ch, inner)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth))
+        self.proj_out = nn.Linear(inner, ch)
+
+    def forward(self, x, context=None):
+        bt, hh, ww, c = x.shape
+        h = self.proj_in(self.norm(x).reshape(bt, hh * ww, c))
+        for block in self.transformer_blocks:
+            h = block(h, context=context)
+        return self.proj_out(h).reshape(bt, hh, ww, c) + x
+
+
+class TemporalTransformer(nn.Module):
+    """Transformer over the T frames of each pixel; input [B, T, H, W, C].
+    only_self_att (the shipped config): attn2 is a second self-attention."""
+
+    def __init__(self, ch: int, heads: int, dim_head: int, depth: int,
+                 use_linear: bool = True):
+        super().__init__()
+        inner = heads * dim_head
+        proj = nn.Linear if use_linear else Conv1x1AsLinear
+        self.norm = GroupNorm32(32, ch, eps=1e-6)
+        self.proj_in = proj(ch, inner)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(inner, heads, dim_head, None) for _ in range(depth))
+        self.proj_out = proj(inner, ch)
+
+    def forward(self, x):
+        b, t, hh, ww, c = x.shape
+        h = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * hh * ww, t, c)
+        h = self.proj_in(h)
+        for block in self.transformer_blocks:
+            h = block(h)
+        h = self.proj_out(h).reshape(b, hh, ww, t, c).permute(0, 3, 1, 2, 4)
+        return h + x
+
+
+class Downsample(nn.Module):
+    """Stride-2 3x3 conv, padding 1 (openaimodel3d.py:51-77)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.op = Conv2d(ch, ch, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class Upsample(nn.Module):
+    """Nearest 2x then 3x3 conv (openaimodel3d.py:80-106)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, padding=1)
+
+    def forward(self, x):
+        x = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2, mode="nearest")
+        return self.conv(x.permute(0, 2, 3, 1))
+
+
+# ---------------------------------------------------------------------------
+# The U-Net
+# ---------------------------------------------------------------------------
+
+class UNet3D(nn.Module):
+    """Epsilon predictor: forward(x [B,T,H,W,Cin], timesteps [B,T],
+    context [B,L,D], fps) -> [B,T,H,W,Cout] in x's type."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        unsupported = [name for name in ("use_relative_position", "use_causal_attention",
+                                         "use_image_attention", "tempspatial_aware")
+                       if getattr(cfg, name)]
+        if not cfg.temporal_selfatt_only:
+            unsupported.append("temporal_selfatt_only=False")
+        if unsupported:
+            raise NotImplementedError(f"UNet3D options not ported yet: {unsupported}")
+        self.cfg = cfg
+        mc, ted = cfg.model_channels, cfg.time_embed_dim
+        self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
+        if cfg.fps_cond:
+            self.fps_embedding = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(),
+                                               nn.Linear(ted, ted))
+        in_plan, mid_plan, out_plan = unet_plan(cfg)
+        self.input_blocks = nn.ModuleList(
+            nn.ModuleList(self._layer(s) for s in block) for block in in_plan)
+        if cfg.addition_attention:
+            self.init_attn = nn.ModuleList([TemporalTransformer(
+                mc, 8, cfg.num_head_channels, cfg.temporal_transformer_depth,
+                use_linear=False)])
+        self.middle_block = nn.ModuleList(self._layer(s) for s in mid_plan)
+        self.output_blocks = nn.ModuleList(
+            nn.ModuleList(self._layer(s) for s in block) for block in out_plan)
+        self.out = _norm_act_conv(mc, Conv2d(mc, cfg.out_channels, 3, padding=1),
+                                  dropout_slot=False)
+
+    def _layer(self, spec) -> nn.Module:
+        cfg, kind = self.cfg, spec["kind"]
+        if kind == "conv_in":
+            return Conv2d(spec["in_ch"], spec["out_ch"], 3, padding=1)
+        if kind == "res":
+            return ResBlock(spec["in_ch"], spec["out_ch"], cfg.time_embed_dim,
+                            cfg.temporal_conv)
+        if kind == "spatial":
+            return SpatialTransformer(spec["out_ch"], spec["heads"], spec["dim_head"],
+                                      cfg.transformer_depth, cfg.context_dim)
+        if kind == "temporal":
+            return TemporalTransformer(spec["out_ch"], spec["heads"], spec["dim_head"],
+                                       cfg.temporal_transformer_depth)
+        if kind == "down":
+            return Downsample(spec["out_ch"])
+        if kind == "up":
+            return Upsample(spec["out_ch"])
+        raise ValueError(kind)
+
+    @staticmethod
+    def _run_block(layers, h, emb, context, batch_size: int):
+        for layer in layers:
+            if isinstance(layer, ResBlock):
+                h = layer(h, emb, batch_size)
+            elif isinstance(layer, SpatialTransformer):
+                h = layer(h, context)
+            elif isinstance(layer, TemporalTransformer):
+                bt, hh, ww, c = h.shape
+                v = layer(h.reshape(batch_size, bt // batch_size, hh, ww, c))
+                h = v.reshape(bt, hh, ww, c)
+            else:
+                h = layer(h)
+        return h
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.time_embed[0].weight.dtype
+
+    def forward(self, x, timesteps, context, fps=16):
+        cfg = self.cfg
+        b, t, hh, ww, _ = x.shape
+        if timesteps.ndim != 2:
+            raise ValueError("timesteps must be [B, T] (per-frame, first-class)")
+        dtype = self.dtype
+
+        emb = self.time_embed(timestep_embedding(timesteps, cfg.model_channels).to(dtype))
+        if cfg.fps_cond:
+            fps_t = torch.as_tensor(fps, dtype=torch.float32, device=x.device)
+            fps_bt = fps_t.reshape(-1, 1).expand(b, t)
+            emb = emb + self.fps_embedding(
+                timestep_embedding(fps_bt, cfg.model_channels).to(dtype))
+        emb = emb.reshape(b * t, cfg.time_embed_dim)
+        ctx = None if context is None else context.repeat_interleave(t, dim=0).to(dtype)
+
+        h = x.reshape(b * t, hh, ww, x.shape[-1]).to(dtype)
+        hs = []
+        for i, block in enumerate(self.input_blocks):
+            h = self._run_block(block, h, emb, ctx, b)
+            if i == 0 and cfg.addition_attention:
+                h = self._run_block(self.init_attn, h, emb, ctx, b)
+            hs.append(h)
+        h = self._run_block(self.middle_block, h, emb, ctx, b)
+        for block in self.output_blocks:
+            h = self._run_block(block, torch.cat([h, hs.pop()], dim=-1), emb, ctx, b)
+        h = self.out(h)
+        return h.reshape(b, t, hh, ww, cfg.out_channels).to(x.dtype)

@@ -1,0 +1,128 @@
+"""Base DDIM sampler, classifier-free guidance and the port's noise source.
+
+Port of moca_tpu/sampling/ddim.py: `shared_normal`, `expand_context`,
+`make_cfg_eps_fn` (standard CFG, cond/uncond rows interleaved),
+`ddim_step_math` with `use_scale`, `ddim_sample` and `stochastic_encode`.
+The reference's `lax.scan` over steps is a Python loop.
+
+Noise. Every draw of the port goes through one callable
+`normal(tag, shape) -> float32 tensor`, where `tag` names the draw with its
+indices (e.g. ("fifo", i, "win", r, "frame", j)). `GeneratorNormal` backs it
+with a seeded torch.Generator; a test can pass a callable that replays the
+JAX package's key layout (docs/RNG.md) so that both packages consume the
+same numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from moca_tpu_torch.schedule import DiffusionSchedule
+
+Normal = Callable[[tuple, tuple], torch.Tensor]
+
+
+class GeneratorNormal:
+    """`normal(tag, shape)` drawn in call order from one seeded generator."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def __call__(self, tag: tuple, shape: tuple) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator, device=self.device,
+                           dtype=torch.float32)
+
+
+def shared_normal(normal: Normal, tag: tuple, shape) -> torch.Tensor:
+    """Noise shared across the leading batch axis: draw [1, ...] and
+    broadcast, so a B-row batch consumes the same numbers as B=1."""
+    one = normal(tag, (1,) + tuple(shape[1:]))
+    return one.expand(tuple(shape))
+
+
+def expand_context(context: torch.Tensor, rows: int) -> torch.Tensor:
+    """Per-row conditioning for a flat window batch: a [1, L, D] context
+    broadcasts over the rows (one prompt; B > 1 prompts are not ported yet)."""
+    if context.shape[0] == rows:
+        return context
+    if context.shape[0] != 1:
+        raise ValueError(f"a {context.shape[0]}-row context for {rows} rows")
+    return context.expand((rows,) + tuple(context.shape[1:]))
+
+
+def make_cfg_eps_fn(unet_apply: Callable, context: torch.Tensor,
+                    uncond_context: Optional[torch.Tensor], guidance_scale: float,
+                    fps=16) -> Callable:
+    """eps_fn(x, t_frames) with classifier-free guidance fused into one
+    U-Net call. Rows are INTERLEAVED: row 2i = cond_i, row 2i+1 = uncond_i."""
+
+    def eps_fn(x, t_frames):
+        if uncond_context is None or guidance_scale == 1.0:
+            return unet_apply(x, t_frames, expand_context(context, x.shape[0]), fps)
+        b = x.shape[0]
+        x2 = torch.stack([x, x], dim=1).reshape((2 * b,) + tuple(x.shape[1:]))
+        t2 = torch.stack([t_frames, t_frames], dim=1).reshape(
+            (2 * b,) + tuple(t_frames.shape[1:]))
+        ctx2 = torch.stack([expand_context(context, b),
+                            expand_context(uncond_context, b)], dim=1)
+        ctx2 = ctx2.reshape((2 * b,) + tuple(context.shape[1:]))
+        eps = unet_apply(x2, t2, ctx2, fps).reshape((b, 2) + tuple(x.shape[1:]))
+        e_c, e_u = eps[:, 0], eps[:, 1]
+        return e_u + guidance_scale * (e_c - e_u)
+
+    return eps_fn
+
+
+def _gather(arr: torch.Tensor, index, like: torch.Tensor) -> torch.Tensor:
+    """arr[index] shaped to broadcast over `like` (index scalar or [.., f])."""
+    index = torch.as_tensor(index, device=arr.device)
+    return arr[index].reshape(tuple(index.shape) + (1,) * (like.ndim - index.ndim - 1))
+
+
+def ddim_step_math(sch: DiffusionSchedule, x: torch.Tensor, eps: torch.Tensor, index,
+                   noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One DDIM update (p_sample_ddim, ddim.py:332-357) including use_scale.
+    `index` is a scalar or a per-frame index array that broadcasts over x."""
+    a_t = _gather(sch.ddim_alphas, index, x)
+    a_prev = _gather(sch.ddim_alphas_prev, index, x)
+    sigma = _gather(sch.ddim_sigmas, index, x)
+    sqrt_1ma = _gather(sch.ddim_sqrt_one_minus_alphas, index, x)
+
+    pred_x0 = (x - sqrt_1ma * eps) / torch.sqrt(a_t)
+    dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0)) * eps
+    if sch.use_scale:
+        pred_x0 = pred_x0 / _gather(sch.ddim_scale_arr, index, x)
+        scale_prev = _gather(sch.ddim_scale_arr_prev, index, x)
+        x_prev = torch.sqrt(a_prev) * scale_prev * pred_x0 + dir_xt + sigma * noise
+    else:
+        x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt + sigma * noise
+    return x_prev, pred_x0
+
+
+def ddim_sample(eps_fn: Callable, sch: DiffusionSchedule, shape: Tuple[int, ...],
+                normal: Normal, tag: tuple = ("base",)):
+    """Full DDIM sampling from pure noise; shape [B, T, H, W, C].
+    Returns (x0_latent, x_T). Draws: tag+("init",) for x_T, tag+("step", i)
+    for step i's sigma-noise."""
+    b, t = shape[0], shape[1]
+    x_T = shared_normal(normal, tag + ("init",), shape)
+    steps = sch.num_ddim_steps
+    x = x_T
+    for i in range(steps):
+        index = steps - 1 - i
+        t_frames = torch.full((b, t), int(sch.ddim_timesteps_np[index]),
+                              dtype=torch.long, device=x.device)
+        eps = eps_fn(x, t_frames)
+        noise = shared_normal(normal, tag + ("step", i), x.shape)
+        x, _ = ddim_step_math(sch, x, eps, index, noise)
+    return x, x_T
+
+
+def stochastic_encode(sch: DiffusionSchedule, x0: torch.Tensor, index,
+                      noise: torch.Tensor) -> torch.Tensor:
+    """q(x_t | x_0) at DDIM step `index` (ddim.py:651-671)."""
+    a = _gather(sch.ddim_alphas, index, x0)
+    return torch.sqrt(a) * x0 + torch.sqrt(1.0 - a) * noise
