@@ -4,17 +4,28 @@ Phases, each failing loudly (non-zero exit, no result line):
   1. print the card's name and power limit, build the CUDA kernels from
      moca_tpu_torch/csrc with nvcc (sm_90a) and print the build time;
   2. hold each kernel to its plain PyTorch version at every shape the main
-     path gives it (and K1 on adversarial softmax inputs), show that faults
-     planted through the kernel's inputs fail that check, and time the
-     kernel, the plain version and one PyTorch library call for the same work;
+     path gives it, with and without the reference's attention switches
+     (K1 also on adversarial softmax inputs, K2 also at head widths 8, 32 and
+     128 at full width and at every shape phase 3's num_head_channels=32
+     U-Net gives it), show that faults planted through the kernel's inputs
+     fail that check, and time the kernel, the plain version and one PyTorch
+     library call for the same work (for K3 multi_head_attention_forward with
+     separate projection weights, beside the port's unfused route);
   3. check the port's U-Net with the kernels (bf16, GPU) against its plain
-     path (fp32, CPU) on a small input;
-  4. drive the main path once: MoCAVideoPipeline at the shipped
+     path (fp32, CPU) on a small input, three times: as it ships; with
+     MOCA_TPU_FA_FUSED_QKV=1 MOCA_TPU_FA_ONEPASS=1 and a 154-token context
+     (K3, K4); at num_head_channels=32 (K2 at d=32, its launch counts set
+     to 0 just before and read just after);
+  4. drive the main path twice: MoCAVideoPipeline at the shipped
      VideoCrafter2 widths, random bf16 weights, 512x320, f=16, n=4 with
      lookahead, guidance 12, concept image, conditioned prompt and masks,
-     with every kernel's launch count read just before and just after;
-  5. time one FIFO U-Net forward, break its device time down by kernel
-     category and read the device's idle share, from one torch.profiler trace.
+     first as it ships (K1, K2), then with both switches (K1, K3, K4), with
+     every kernel's launch count set to 0 just before each run and read just
+     after; every shape that a kernel received in these two runs or in the
+     d=32 U-Net must have been held to its plain version in phase 2;
+  5. time one FIFO U-Net forward with and without the switches, break each
+     one's device time down by kernel category and read the device's idle
+     share, from one torch.profiler trace each, and compare the two outputs.
 Prints a JSON line of kernel measurements, then as the last line
 {"ok": true, "device": {...}}.
 
@@ -23,9 +34,12 @@ Usage: python3 chip_smoke.py [new_video_length (default 4)]
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +54,14 @@ H100_BYTES_PER_S = 3.35e12
 # through the kernel's inputs to show that it fails them.
 KERNEL_TOL = 2e-2
 UNET_REL_TOL = 5e-2  # bf16 GPU forward vs fp32 CPU forward, relative to max |ref|
+# The switched full-width forward against the default one on the same input,
+# relative to max |default|: both are bf16 forwards of the same function whose
+# attention rounds at different points (K3 adds the bias after rounding, K4
+# rounds the scaled q); the same limit as the bf16-vs-fp32 check above.
+SWITCHED_REL_TOL = 5e-2
+SWITCHES = {"MOCA_TPU_FA_FUSED_QKV": "1", "MOCA_TPU_FA_ONEPASS": "1"}
+KERNEL_NAMES = ("flash_attention", "packed_attention", "fused_qkv_attention",
+                "flash_attention_onepass")
 
 
 def fail(msg: str):
@@ -61,6 +83,21 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+@contextlib.contextmanager
+def switches_on():
+    """The reference's attention switches, as its users set them."""
+    old = {k: os.environ.get(k) for k in SWITCHES}
+    os.environ.update(SWITCHES)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def max_row_rel_err(out, ref, d=64):
     """max over rows of ||out - ref|| / ||ref||, rows being d-vectors."""
     out, ref = out.float().reshape(-1, d), ref.float().reshape(-1, d)
@@ -68,16 +105,17 @@ def max_row_rel_err(out, ref, d=64):
     return ((out - ref).norm(dim=1) / ref_norm.clamp_min(1e-6 * ref_norm.max())).max().item()
 
 
-def hold_to_plain(what, out, ref, faults=()):
+def hold_to_plain(what, out, ref, faults=(), d=64):
     """Fail unless out is finite and within KERNEL_TOL of ref, and every
-    planted fault is beyond it. Returns (row error, smallest fault error)."""
+    planted fault is beyond it (rows of d values). Returns (row error,
+    smallest fault error)."""
     import torch
 
-    err = max_row_rel_err(out, ref)
+    err = max_row_rel_err(out, ref, d)
     if not torch.isfinite(out.float()).all() or not err <= KERNEL_TOL:
         fail(f"{what}: finite={bool(torch.isfinite(out.float()).all())}, "
              f"row relative err {err} > {KERNEL_TOL}")
-    fault_err = min((max_row_rel_err(f, ref) for f in faults), default=math.inf)
+    fault_err = min((max_row_rel_err(f, ref, d) for f in faults), default=math.inf)
     if not fault_err > KERNEL_TOL:
         fail(f"{what}: a planted fault reads {fault_err} <= {KERNEL_TOL}; the check cannot "
              f"tell it from a sound kernel")
@@ -96,6 +134,17 @@ def attention_bound_ms(q, k, v):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def fused_qkv_bound_ms(n, s, c):
+    """The least time of K3's function on the card: its four C x C
+    projections and the S x S attention (8*N*S*C^2 + 4*N*S^2*C tensor-core
+    operations) over the bf16 peak, or x and o once, the four weights and
+    the bias (2*N*S*C + 4*C^2 + C bf16 values) over the memory rate."""
+    flops = 8 * n * s * c * c + 4 * n * s * s * c
+    nbytes = (2 * n * s * c + 4 * c * c + c) * 2
+    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def phase_build():
     from moca_tpu_torch.ops import flash_attention as fa
 
@@ -107,15 +156,17 @@ def phase_build():
     print(smi.stdout.strip().splitlines()[0], flush=True)
     t0 = time.perf_counter()
     fa.build_kernels()
-    for name in ("flash", "packed"):
-        fa._lib(name)
+    for name in fa._SOURCES:
+        fa._entry(name)
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc: {json.dumps({k: round(v['seconds'], 1) for k, v in fa.build_log.items()})})",
           flush=True)
     for name, log in fa.build_log.items():
-        for line in log["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log["ptxas"])]
+        spills = [line.strip() for line in log["ptxas"].splitlines()
+                  if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")]
+        print(f"[ptxas {name}] {len(regs)} kernels, registers {min(regs, default=0)}-"
+              f"{max(regs, default=0)}, spills: {spills or 'none'}", flush=True)
 
 
 def _randn_bf16(shape, gen):
@@ -131,39 +182,46 @@ def _chunked(fn, q, k, v, chunk):
                       for i in range(0, q.shape[0], chunk)])
 
 
-def check_flash(b, sq, sk, h, gen, rows, reps=10):
-    """K1 at q [b, sq, h, 64] over k, v [b, sk, h, 64] against attention_plain
-    (batch-chunked: the plain fp32 logits at b=256, s=2560 would take 33.5 GB)."""
+def check_flash(b, sq, sk, h, gen, rows, reps=10, onepass=False):
+    """K1 (or K4 with `onepass`) at q [b, sq, h, 64] over k, v [b, sk, h, 64]
+    against its plain version (batch-chunked: the plain fp32 logits at b=256,
+    s=2560 would take 33.5 GB)."""
     import torch
     import torch.nn.functional as F
     from moca_tpu_torch.ops import flash_attention as fa
 
+    kernel = fa.flash_attention_onepass if onepass else fa.flash_attention
+    plain = fa.flash_attention_onepass_plain if onepass else fa.attention_plain
+    label = "K4 flash_attention_onepass" if onepass else "K1 flash_attention"
     q, k, v = (_randn_bf16((b, s, h, 64), gen) for s in (sq, sk, sk))
     chunk = max(1, (2 << 30) // (h * sq * sk * 4))
-    out = fa.flash_attention(q, k, v)
+    out = kernel(q, k, v)
     torch.cuda.synchronize()
-    ref = _chunked(fa.attention_plain, q, k, v, chunk)
+    ref = _chunked(plain, q, k, v, chunk)
     cut = sk - 64  # planted faults: the last kv tile left out; the scale halved
-    faults = (fa.flash_attention(q, k[:, :cut].contiguous(), v[:, :cut].contiguous()),
-              fa.flash_attention(q * 0.5, k, v))
-    rel, fault_rel = hold_to_plain(f"flash_attention [{b},{sq},{sk},{h},64]", out, ref, faults)
+    faults = (kernel(q, k[:, :cut].contiguous(), v[:, :cut].contiguous()), kernel(q * 0.5, k, v))
+    rel, fault_rel = hold_to_plain(f"{kernel.__name__} [{b},{sq},{sk},{h},64]", out, ref, faults)
     del faults
     err = (out.float() - ref.float()).abs().max().item()
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), reps)
-    plain_ms = cuda_ms(lambda: _chunked(fa.attention_plain, q, k, v, chunk), 2, warmup=1)
+    ms = cuda_ms(lambda: kernel(q, k, v), reps)
+    plain_ms = cuda_ms(lambda: _chunked(plain, q, k, v, chunk), 2, warmup=1)
     tr = lambda t: t.transpose(1, 2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(tr(q), tr(k), tr(v)), reps)
     bms, by = attention_bound_ms(q, k, v)
-    print(f"[K1 flash_attention B={b} Sq={sq} Sk={sk} H={h} D=64] row_rel_err {rel:.3e} "
+    print(f"[{label} B={b} Sq={sq} Sk={sk} H={h} D=64] row_rel_err {rel:.3e} "
           f"(tol {KERNEL_TOL}, planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
           f"bound {bms:.4f} ms ({by})", flush=True)
-    small = sq == sk and sq <= 640  # the reference's _small_attention route
-    rows.append(dict(name=f"flash_attention B={b} Sq={sq} Sk={sk} H={h} D=64", route="cuda",
-                     source="moca_tpu_torch/csrc/flash_attention.cu",
-                     replaces=("moca_tpu/ops/flash_attention.py:298 (_fa_small_kernel)"
-                               if small else
-                               "moca_tpu/ops/flash_attention.py:765 (_fa_kernel)"),
+    if onepass:
+        source, replaces = ("moca_tpu_torch/csrc/flash_onepass.cu",
+                            "moca_tpu/ops/flash_attention.py:713 (_fa_onepass_kernel)")
+    else:
+        source = "moca_tpu_torch/csrc/flash_attention.cu"
+        small = sq == sk and sq <= 640  # the reference's _small_attention route
+        replaces = ("moca_tpu/ops/flash_attention.py:298 (_fa_small_kernel)" if small else
+                    "moca_tpu/ops/flash_attention.py:765 (_fa_kernel)")
+    rows.append(dict(name=f"{kernel.__name__} B={b} Sq={sq} Sk={sk} H={h} D=64", route="cuda",
+                     source=source, replaces=replaces,
                      shape=(b, sq, sk, h, 64), max_abs_err=err, max_row_rel_err=rel,
                      fault_row_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
                      bound_ms=bms, bound_by=by, library_ms=lib_ms))
@@ -193,37 +251,95 @@ def check_flash_adversarial(gen):
               f"(tol {KERNEL_TOL})", flush=True)
 
 
-def check_packed(n, s, c, gen, rows, reps=20):
+def check_packed(n, s, c, gen, rows, reps=20, d=64):
     import torch.nn.functional as F
     from moca_tpu_torch.ops import flash_attention as fa
 
-    heads = c // 64
+    heads = c // d
     q, k, v = (_randn_bf16((n, s, c), gen) for _ in range(3))
     out = fa.packed_attention(q, k, v, heads)
     ref = fa.packed_attention_plain(q, k, v, heads)
     v_cut = v.clone()
     v_cut[:, -1] = 0  # planted faults: the last key left out of PV; the scale halved
     faults = (fa.packed_attention(q, k, v_cut, heads), fa.packed_attention(q * 0.5, k, v, heads))
-    rel, fault_rel = hold_to_plain(f"packed_attention [{n},{s},{c}]", out, ref, faults)
+    rel, fault_rel = hold_to_plain(f"packed_attention [{n},{s},{c}] d={d}", out, ref, faults, d)
     del faults, v_cut
     err = (out.float() - ref.float()).abs().max().item()
     ms = cuda_ms(lambda: fa.packed_attention(q, k, v, heads), reps)
     plain_ms = cuda_ms(lambda: fa.packed_attention_plain(q, k, v, heads), 3, warmup=1)
-    split = lambda t: t.view(n, s, heads, 64)
+    split = lambda t: t.view(n, s, heads, d)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         split(q).transpose(1, 2), split(k).transpose(1, 2), split(v).transpose(1, 2)), reps)
     bms, by = attention_bound_ms(split(q), split(k), split(v))
-    print(f"[K2 packed_attention N={n} S={s} C={c}] row_rel_err {rel:.3e} (tol {KERNEL_TOL}, "
+    print(f"[K2 packed_attention N={n} S={s} C={c} d={d}] row_rel_err {rel:.3e} (tol {KERNEL_TOL}, "
           f"planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
           f"bound {bms:.4f} ms ({by})", flush=True)
-    rows.append(dict(name=f"packed_attention N={n} S={s} C={c}", route="cuda",
-                     source="moca_tpu_torch/csrc/packed_attention.cu",
-                     replaces=("moca_tpu/ops/flash_attention.py:614 (_packed_slice_kernel)"
-                               if c == 320 else
-                               "moca_tpu/ops/flash_attention.py:559 (_packed_lane_kernel)"),
-                     shape=(n, s, c), max_abs_err=err, max_row_rel_err=rel,
+    if d != 64:
+        replaces = "moca_tpu/ops/flash_attention.py:614 (_packed_tiny_kernel)"
+    elif c == 320:
+        replaces = "moca_tpu/ops/flash_attention.py:614 (_packed_slice_kernel)"
+    else:
+        replaces = "moca_tpu/ops/flash_attention.py:559 (_packed_lane_kernel)"
+    rows.append(dict(name=f"packed_attention N={n} S={s} C={c}" + (f" d={d}" if d != 64 else ""),
+                     route="cuda", source="moca_tpu_torch/csrc/packed_attention.cu",
+                     replaces=replaces, shape=(n, s, c, heads),
+                     max_abs_err=err, max_row_rel_err=rel,
                      fault_row_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
                      bound_ms=bms, bound_by=by, library_ms=lib_ms))
+
+
+def check_fused(n, s, c, gen, rows, reps=10):
+    """K3 at x [n, s, c] with weights N(0, 1/C), so that q, k, v and the
+    logits are O(1), against its plain version. Planted faults: Wq halved,
+    and the last head's Wv rows zeroed."""
+    import torch
+    import torch.nn.functional as F
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    heads = c // 64
+    x = _randn_bf16((n, s, c), gen)
+    wq, wk, wv, wo = ((torch.randn((c, c), generator=gen, device="cuda") * c ** -0.5)
+                      .to(torch.bfloat16) for _ in range(4))
+    bo = (torch.randn((c,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+    out = fa.fused_qkv_attention(x, wq, wk, wv, wo, bo, heads)
+    torch.cuda.synchronize()
+    ref = fa.fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads)
+    wv_cut = wv.clone()
+    wv_cut[-64:] = 0
+    faults = (fa.fused_qkv_attention(x, wq * 0.5, wk, wv, wo, bo, heads),
+              fa.fused_qkv_attention(x, wq, wk, wv_cut, wo, bo, heads))
+    rel, fault_rel = hold_to_plain(f"fused_qkv_attention [{n},{s},{c}]", out, ref, faults)
+    del faults, wv_cut
+    err = (out.float() - ref.float()).abs().max().item()
+    ms = cuda_ms(lambda: fa.fused_qkv_attention(x, wq, wk, wv, wo, bo, heads), reps)
+    plain_ms = cuda_ms(lambda: fa.fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads), 2,
+                       warmup=1)
+    # the library call for K3's function (timed only, the port never calls
+    # it): torch's multi-head attention on [S, N, C] with the separate q/k/v
+    # projection weights, no input bias, and Wo, bo as its out projection
+    xt = x.transpose(0, 1)
+    library = lambda: F.multi_head_attention_forward(
+        xt, xt, xt, c, heads, None, None, None, None, False, 0.0, wo, bo, training=False,
+        need_weights=False, use_separate_proj_weight=True, q_proj_weight=wq,
+        k_proj_weight=wk, v_proj_weight=wv)[0]
+    lib_rel = max_row_rel_err(library().transpose(0, 1), ref)
+    lib_ms = cuda_ms(library, reps)
+    # and the port's unfused route beside it: four cuBLAS linears around K2
+    unfused_ms = cuda_ms(lambda: F.linear(fa.packed_attention(
+        F.linear(x, wq), F.linear(x, wk), F.linear(x, wv), heads), wo, bo), reps)
+    bms, by = fused_qkv_bound_ms(n, s, c)
+    print(f"[K3 fused_qkv_attention N={n} S={s} C={c}] row_rel_err {rel:.3e} (tol {KERNEL_TOL}, "
+          f"planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} kernel {ms:.4f} ms "
+          f"plain {plain_ms:.4f} ms library (multi_head_attention_forward, row_rel_err "
+          f"{lib_rel:.3e} against the plain version) {lib_ms:.4f} ms unfused route (4 linears "
+          f"+ K2) {unfused_ms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    rows.append(dict(name=f"fused_qkv_attention N={n} S={s} C={c}", route="cuda",
+                     source="moca_tpu_torch/csrc/fused_qkv_attention.cu",
+                     replaces="moca_tpu/ops/flash_attention.py:524 (_fused_qkv_kernel)",
+                     shape=(n, s, c), max_abs_err=err, max_row_rel_err=rel,
+                     fault_row_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                     library_row_rel_err=lib_rel, unfused_route_ms=unfused_ms))
 
 
 def main_path_shapes(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int,
@@ -247,31 +363,70 @@ def main_path_shapes(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: in
     return k1, k2
 
 
+def switched_shapes(k1, k2):
+    """(K3 [N,S,C] shapes, K4 [B,Sq,Sk,H,D] shapes) that the same U-Net gives
+    the kernels with both switches on: every temporal attention goes to K3
+    (all its widths have d = 64 and pass the gate), and every K1 shape that
+    the reference sends to its one-pass kernel goes to K4."""
+    from moca_tpu_torch.ops.attention import onepass_full_kv
+
+    k4 = [sh for sh in k1 if not (sh[1] == sh[2] and sh[1] <= 640) and onepass_full_kv(sh[1], sh[2])]
+    return list(k2), k4
+
+
+# phase 3's U-Net: one row of 16 frames on a 16 x 16 latent
+UNET_REF_CFG = dict(model_channels=64, num_head_channels=64, context_dim=64,
+                    channel_mult=(1, 2), attention_resolutions=(1,), num_res_blocks=1,
+                    temporal_length=16)
+
+
+def unet_reference_packed_shapes(head_ch: int, lat: int = 16, f: int = 16):
+    """K2 [N, S, C, heads] shapes of phase 3's U-Net at num_head_channels
+    `head_ch`: the 8-head init attention (C = 8 * head_ch) and the temporal
+    attention at ds 1 (C = 64) and in the middle block (ds 2, C = 128)."""
+    mc = UNET_REF_CFG["model_channels"]
+    n0, n1 = lat * lat, (lat // 2) ** 2
+    return [(n0, f, 8 * head_ch, 8), (n0, f, mc, mc // head_ch),
+            (n1, f, 2 * mc, 2 * mc // head_ch)]
+
+
 def phase_kernels(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     k1, k2 = main_path_shapes(rows_fifo, rows_base, ctx_fifo, ctx_base)
+    k3, k4 = switched_shapes(k1, k2)
     for b, sq, sk, h, _ in k1:
         check_flash(b, sq, sk, h, gen, rows)
     check_flash_adversarial(gen)
     for n, s, c in k2:
         check_packed(n, s, c, gen, rows)
+    for n, s, c in k3:
+        check_fused(n, s, c, gen, rows)
+    for b, sq, sk, h, _ in k4:
+        check_flash(b, sq, sk, h, gen, rows, onepass=True)
+    # K2 at the head widths of `_packed_tiny_kernel`'s route, full-width N
+    for n, c, d in ((rows_fifo * 2560, 320, 8), (rows_fifo * 2560, 320, 32),
+                    (rows_fifo * 640, 640, 128)):
+        check_packed(n, 16, c, gen, rows, d=d)
+    # and at every shape phase 3's num_head_channels=32 U-Net gives it
+    for n, s, c, heads in unet_reference_packed_shapes(32):
+        check_packed(n, s, c, gen, rows, d=c // heads)
     return rows
 
 
-def phase_unet_reference():
+def check_unet_reference(label, ctx_len, switched, expect, **cfg_kw):
     """The port's U-Net with the kernels (bf16, GPU) against its plain path
-    (fp32, CPU) on one small input; S=256 spatial (K1) and S=16 temporal (K2)."""
+    (fp32, CPU) on one small input (S=256 spatial, S=16 temporal); fails
+    unless every kernel named in `expect` launched. Returns the GPU
+    forward's launches, {kernel: {shape: n}}."""
     import numpy as np
     import torch
     from moca_tpu_torch.models.unet3d import UNet3D, UNetConfig
     from moca_tpu_torch.ops import flash_attention as fa
 
-    cfg = UNetConfig(model_channels=64, num_head_channels=64, context_dim=64,
-                     channel_mult=(1, 2), attention_resolutions=(1,), num_res_blocks=1,
-                     temporal_length=16)
+    cfg = UNetConfig(**{**UNET_REF_CFG, **cfg_kw})
     torch.manual_seed(0)
     ref_model = UNet3D(cfg).eval()
     with torch.no_grad():
@@ -280,22 +435,41 @@ def phase_unet_reference():
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.standard_normal((1, 16, 16, 16, 4)), dtype=torch.float32)
     ts = torch.as_tensor(rng.integers(0, 1000, (1, 16)))
-    ctx = torch.as_tensor(rng.standard_normal((1, 77, 64)), dtype=torch.float32)
+    ctx = torch.as_tensor(rng.standard_normal((1, ctx_len, 64)), dtype=torch.float32)
     with torch.inference_mode():
         ref = ref_model(x, ts, ctx, fps=10)
         gpu_model = ref_model.to("cuda", torch.bfloat16)
         fa.reset_launch_counts()
-        out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
+        with switches_on() if switched else contextlib.nullcontext():
+            out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
     if not math.isfinite(rel) or rel > UNET_REL_TOL:
-        fail(f"U-Net GPU vs CPU reference: relative max err {rel} > {UNET_REL_TOL}")
-    if not (fa.flash_attention.launches and fa.packed_attention.launches):
-        fail("the reference-check U-Net did not reach both kernels")
-    print(f"[unet reference] bf16 GPU (kernels) vs fp32 CPU (plain): relative max err "
-          f"{rel:.3e} (tol {UNET_REL_TOL})", flush=True)
+        fail(f"U-Net {label} GPU vs CPU reference: relative max err {rel} > {UNET_REL_TOL}")
+    launched = {fn.__name__: dict(fn.launches) for fn in fa.KERNELS}
+    missing = [name for name in expect if not launched[name]]
+    if missing:
+        fail(f"the reference-check U-Net ({label}) did not reach {missing}")
+    print(f"[unet reference, {label}] bf16 GPU (kernels) vs fp32 CPU (plain): relative max "
+          f"err {rel:.3e} (tol {UNET_REL_TOL}); launches "
+          f"{json.dumps({k: {str(s): n for s, n in v.items()} for k, v in launched.items() if v})}",
+          flush=True)
+    return launched
+
+
+def phase_unet_reference():
+    """The three U-Net checks; returns the launches of the one at
+    num_head_channels=32, the path's run at a head width other than 64."""
+    check_unet_reference("as shipped, context 77", 77, False,
+                         ("flash_attention", "packed_attention"))
+    check_unet_reference("both switches, context 154", 154, True,
+                         ("flash_attention", "fused_qkv_attention", "flash_attention_onepass"))
+    return check_unet_reference("num_head_channels=32", 77, False, ("packed_attention",),
+                                num_head_channels=32)
 
 
 def phase_main_path(new_video_length: int, num_partitions: int):
+    """Build the full-width model and drive the main path twice: as shipped,
+    then with both switches. Returns ({run: {kernel: {shape: launches}}}, model)."""
     import numpy as np
     import torch
     from moca_tpu_torch.models.clip_text import CLIPTextConfig
@@ -313,44 +487,49 @@ def phase_main_path(new_video_length: int, num_partitions: int):
     print(f"[main] model built in {time.perf_counter() - t0:.1f} s, "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params", flush=True)
     f = 16
-    pipe = MoCAVideoPipeline(model, HashTokenizer(), video_length=f,
-                             num_partitions=num_partitions,
-                             new_video_length=new_video_length, guidance_scale=12.0)
     h, w = 40, 64
     masks = np.zeros((f, h, w), np.float32)
     masks[:, 10:30, 16:48] = 1.0
     cond = np.full((h, w, 4), 0.2, np.float32)
 
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
-    t0 = time.perf_counter()
-    frames = pipe("a cat surfing", seed=321, cond_image=cond, conditioned_prompt="a dog",
-                  gamma=0.5, height=320, width=512, masks=masks)
-    total = time.perf_counter() - t0
-    shapes = {"flash_attention": dict(fa.flash_attention.launches),
-              "packed_attention": dict(fa.packed_attention.launches)}
-    counts = {name: sum(by_shape.values()) for name, by_shape in shapes.items()}
+    shapes = {}
+    for run, expect in (("default", ("flash_attention", "packed_attention")),
+                        ("switched", ("flash_attention", "fused_qkv_attention",
+                                      "flash_attention_onepass"))):
+        pipe = MoCAVideoPipeline(model, HashTokenizer(), video_length=f,
+                                 num_partitions=num_partitions,
+                                 new_video_length=new_video_length, guidance_scale=12.0)
+        torch.cuda.reset_peak_memory_stats()
+        with switches_on() if run == "switched" else contextlib.nullcontext():
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            frames = pipe("a cat surfing", seed=321, cond_image=cond, conditioned_prompt="a dog",
+                          gamma=0.5, height=320, width=512, masks=masks)
+            total = time.perf_counter() - t0
+            shapes[run] = {fn.__name__: dict(fn.launches) for fn in fa.KERNELS}
+        counts = {name: sum(by_shape.values()) for name, by_shape in shapes[run].items()}
 
-    iters = new_video_length + pipe.num_inference_steps - f
-    finite = all(np.isfinite(x).all() for x in frames)
-    if len(frames) != iters or frames[0].shape != (320, 512, 3) or not finite:
-        fail(f"main path: {len(frames)} frames (want {iters}), shape {frames[0].shape}, "
-             f"finite={finite}")
-    for name, n in counts.items():
-        if n <= 0:
-            fail(f"main path launched {name} no time")
-    steady = pipe.timings["fifo_iteration"] + pipe.timings["decode"]
-    print(f"[main] {len(frames)} frames {frames[0].shape}, all finite; total {total:.2f} s, "
-          f"{total / len(frames):.3f} s/frame incl. base sample; FIFO+decode "
-          f"{steady / iters:.3f} s/frame; stages "
-          f"{json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    print(f"[main] launches {json.dumps(counts)}", flush=True)
+        iters = new_video_length + pipe.num_inference_steps - f
+        finite = all(np.isfinite(x).all() for x in frames)
+        if len(frames) != iters or frames[0].shape != (320, 512, 3) or not finite:
+            fail(f"main path ({run}): {len(frames)} frames (want {iters}), shape "
+                 f"{frames[0].shape}, finite={finite}")
+        for name in expect:
+            if counts[name] <= 0:
+                fail(f"main path ({run}) launched {name} no time")
+        steady = pipe.timings["fifo_iteration"] + pipe.timings["decode"]
+        print(f"[main {run}] {len(frames)} frames {frames[0].shape}, all finite; total "
+              f"{total:.2f} s, {total / len(frames):.3f} s/frame incl. base sample; FIFO+decode "
+              f"{steady / iters:.3f} s/frame; stages "
+              f"{json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+        print(f"[main {run}] launches {json.dumps(counts)}", flush=True)
     return shapes, model
 
 
 _CATEGORIES = (  # kernel-name substrings -> category, first match wins
     ("flash_fwd", "K1 flash_attention"), ("packed_fwd", "K2 packed_attention"),
+    ("fused_qkv_fwd", "K3 fused_qkv_attention"), ("onepass_fwd", "K4 flash_attention_onepass"),
     ("fprop", "convolution"), ("conv", "convolution"), ("dgrad", "convolution"),
     ("gemm", "matmul"), ("nvjet", "matmul"), ("cutlass", "matmul"),
     ("softmax", "softmax"), ("reduce", "reduction"), ("norm", "reduction"),
@@ -359,24 +538,41 @@ _CATEGORIES = (  # kernel-name substrings -> category, first match wins
 
 
 def phase_profile(model, rows: int, ctx_len: int, f: int = 16):
-    """Where one FIFO U-Net forward spends device time: CUDA-event time of
-    the call, then one torch.profiler trace (device activity only) summed by
-    kernel category, with the device's idle share over the trace's device
-    span (first kernel start to last kernel end)."""
+    """Where one FIFO U-Net forward spends device time, as shipped and with
+    both switches: CUDA-event time of the call, then one torch.profiler trace
+    (device activity only) summed by kernel category, with the device's idle
+    share over the trace's device span (first kernel start to last kernel
+    end). Then the two forwards' outputs on the same input are compared."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn((rows, f, 40, 64, 4), generator=gen, device="cuda")
     ts = torch.randint(0, 1000, (rows, f), generator=gen, device="cuda")
     ctx = torch.randn((rows, ctx_len, 1024), generator=gen, device="cuda")
+    out = {}
+    for run in ("default", "switched"):
+        with switches_on() if run == "switched" else contextlib.nullcontext():
+            out[run] = profile_forward(model, x, ts, ctx, run)
+    ref = out["default"].float()
+    rel = ((out["switched"].float() - ref).abs().max() / ref.abs().max()).item()
+    if not math.isfinite(rel) or rel > SWITCHED_REL_TOL:
+        fail(f"switched U-Net forward vs default: relative max err {rel} > {SWITCHED_REL_TOL}")
+    print(f"[profile] switched forward vs default forward, same input: relative max err "
+          f"{rel:.3e} (tol {SWITCHED_REL_TOL})", flush=True)
+
+
+def profile_forward(model, x, ts, ctx, label):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rows, f = x.shape[:2]
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model.apply_unet(x, ts, ctx, 10), reps=3, warmup=1)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            model.apply_unet(x, ts, ctx, 10)
+            out = model.apply_unet(x, ts, ctx, 10)
             torch.cuda.synchronize()
-    print(f"[profile] U-Net forward at {rows} rows x {f} frames, context {ctx_len}: "
-          f"{fwd_ms:.1f} ms (CUDA events, mean of 3)", flush=True)
+    print(f"[profile {label}] U-Net forward at {rows} rows x {f} frames, context "
+          f"{ctx.shape[1]}: {fwd_ms:.1f} ms (CUDA events, mean of 3)", flush=True)
     cuda = torch.autograd.DeviceType.CUDA
     kernels = {}
     for e in prof.key_averages():
@@ -384,8 +580,8 @@ def phase_profile(model, rows: int, ctx_len: int, f: int = 16):
             kernels[e.key] = kernels.get(e.key, 0.0) + e.self_device_time_total / 1e3
     busy = sum(kernels.values())
     if not busy:
-        print("[profile] the profiler recorded no device time", flush=True)
-        return
+        print(f"[profile {label}] the profiler recorded no device time", flush=True)
+        return out
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == cuda)
     if spans:
@@ -394,21 +590,23 @@ def phase_profile(model, rows: int, ctx_len: int, f: int = 16):
             covered += max(0, end - max(start, reach))
             reach = max(reach, end)
         span = reach - spans[0][0]
-        print(f"[profile] traced forward: device busy {covered / 1e3:.2f} ms of a "
+        print(f"[profile {label}] traced forward: device busy {covered / 1e3:.2f} ms of a "
               f"{span / 1e3:.2f} ms device span, idle share {1 - covered / span:.4f} "
               f"(profiler on)", flush=True)
     else:
-        print("[profile] idle share not measured: the trace holds no device intervals",
-              flush=True)
+        print(f"[profile {label}] idle share not measured: the trace holds no device "
+              f"intervals", flush=True)
     cats = {}
     for name, ms in kernels.items():
         low = name.lower()
         cat = next((c for key, c in _CATEGORIES if key in low), "other")
         cats[cat] = cats.get(cat, 0.0) + ms
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {cat:22s} {ms:9.2f} ms  {100 * ms / busy:5.1f} %", flush=True)
+        print(f"[profile {label}]   {cat:26s} {ms:9.2f} ms  {100 * ms / busy:5.1f} %",
+              flush=True)
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"[profile]   top {ms:9.2f} ms  {name[:110]}", flush=True)
+        print(f"[profile {label}]   top {ms:9.2f} ms  {name[:110]}", flush=True)
+    return out
 
 
 def main(argv):
@@ -431,18 +629,23 @@ def main(argv):
     phase_build()
     # text context: 77 prompt tokens, 154 with the conditioned prompt (FIFO)
     rows = phase_kernels(rows_fifo, rows_base=2, ctx_fifo=154, ctx_base=77)
-    phase_unet_reference()
+    unet_d32 = phase_unet_reference()
     shapes, model = phase_main_path(new_video_length, num_partitions)
+    shapes["unet_d32"] = unet_d32
     phase_profile(model, rows_fifo, ctx_len=154)
 
-    for name, by_shape in shapes.items():
-        checked = {r["shape"] for r in rows if r["name"].startswith(name)}
-        unchecked = set(by_shape) - checked
-        if unchecked:
-            fail(f"main path gave {name} shapes not held to the plain version: {unchecked}")
-    for r in rows:
-        kernel = r["name"].split()[0]
-        r["launches"] = shapes[kernel].get(r.pop("shape"), 0)
+    for run, by_kernel in shapes.items():
+        for name, by_shape in by_kernel.items():
+            checked = {r["shape"] for r in rows if r["name"].split()[0] == name}
+            unchecked = set(by_shape) - checked
+            if unchecked:
+                fail(f"the path ({run}) gave {name} shapes not held to the plain version: "
+                     f"{unchecked}")
+    for r in rows:  # launches over the path's three runs, and in each
+        kernel, shape = r["name"].split()[0], r.pop("shape")
+        for run in shapes:
+            r[f"launches_{run}"] = shapes[run][kernel].get(shape, 0)
+        r["launches"] = sum(r[f"launches_{run}"] for run in shapes)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,52 +1,66 @@
-// K2: tiny-sequence self-attention on packed heads, [N, S, H*64] bf16,
-// S in {8, 16, 24, 32}.
+// K2: tiny-sequence self-attention on packed heads, [N, S, H*d] bf16,
+// S in {8, 16, 24, 32}, d a multiple of 8 up to 128.
 //
 // Replaces the Pallas TPU kernels `_packed_slice_kernel`
-// (moca_tpu/ops/flash_attention.py:359, launched at :614 by `packed_attention`)
-// and `_packed_lane_kernel` (:385, launched at :559 by `_packed_lane_attention`).
-// On the product path it serves the temporal transformers: S = 16 frames over
-// N = batch*height*width pixel rows, C = 320 (5 heads), 512 (the 8-head init
-// attention), 640 and 1280.
+// (moca_tpu/ops/flash_attention.py:359, launched at :614 by `packed_attention`),
+// `_packed_lane_kernel` (:385, launched at :559 by `_packed_lane_attention`) and
+// `_packed_tiny_kernel` (:320, launched at :614). On the product path it serves
+// the temporal transformers: S = 16 frames over N = batch*height*width pixel
+// rows, d = 64 at C = 320 (5 heads), 512 (the 8-head init attention), 640 and
+// 1280; a U-Net built with another head width (num_head_channels 8 or 32) gives
+// it that d, as it gives the reference's `_packed_tiny_kernel`. The reference
+// takes any d there; this kernel takes d % 8 == 0 up to 128 (a head's row slice
+// is then a whole number of 16-byte copies) and the wrapper raises on others.
 //
-// What bounds it on an H100: one (row, head) problem is 4*S*S*64 operations
-// against 4*S*64*2 bytes, i.e. S/2 = 8 operations per byte at S = 16, so it is
+// What bounds it on an H100: one (row, head) problem is 4*S*S*d operations
+// against 4*S*d*2 bytes, i.e. S/2 = 8 operations per byte at S = 16, so it is
 // bound by bytes: one read of q, k and v and one write of o is the floor
 // (four [40960, 16, 320] bf16 tensors, 1.68 GB, ~0.50 ms, at C = 320).
 //
-// Design. One warp owns one (row, head) problem. It copies the head's 64
-// contiguous channels at offset h*64 of each of the S rows of q, k and v into
+// Design. One warp owns one (row, head) problem. It copies the head's d
+// contiguous channels at offset h*d of each of the S rows of q, k and v into
 // shared memory with 16-byte cp.async copies; consecutive lanes take
-// consecutive 16-byte chunks of a 128-byte row, so every warp-wide copy moves
-// four whole rows and the traffic is coalesced. QK^T and PV run on the tensor
-// cores (mma.sync m16n8k16, bf16 in, fp32 accumulate); the S x S logits stay in
-// registers and the softmax is exact in fp32, normalised before PV as the
-// Pallas bodies do. The output is staged through shared memory and written as
-// whole 128-byte rows. The lane-slice and lane-mask tricks of the TPU kernels
-// work around Mosaic's lane layout and have no counterpart here.
+// consecutive 16-byte chunks of a row, so at d = 64 every warp-wide copy moves
+// four whole 128-byte rows and the traffic is coalesced. Where d % 16 != 0 the
+// row is zero-padded to the next multiple of 16 (DP), the mma depth: the
+// padded columns add nothing to QK^T and give zero output columns that are not
+// stored. QK^T and PV run on the tensor cores (mma.sync m16n8k16, bf16 in,
+// fp32 accumulate); the S x S logits stay in registers and the softmax is exact
+// in fp32, normalised before PV as the Pallas bodies do. The output is staged
+// through shared memory and written as whole rows. The lane-slice and
+// lane-mask tricks of the TPU kernels work around Mosaic's lane layout and
+// have no counterpart here.
 #include "mma.cuh"
 
 using namespace moca;
 
 namespace {
 
-constexpr int D = 64;
-constexpr int LD = D + 8;  // padded row (bf16), conflict-free ldmatrix
+constexpr int STATIC_SMEM = 48 * 1024;  // static shared memory a block may use
 
-template <int S>
+// S rows of q/k/v per problem, DP = d rounded up to the mma depth (16).
+template <int S, int DP>
 struct Cfg {
+  static constexpr int LD = DP + 8;         // padded row (bf16), conflict-free ldmatrix
+  static constexpr int CH = DP / 8;         // 16-byte chunks per padded row
   static constexpr int MT = (S + 15) / 16;  // m16 tiles of q rows
   static constexpr int SP = MT * 16;        // rows padded to whole tiles
   static constexpr int NT = SP / 8;         // n8 tiles of logits
-  static constexpr int WARPS = MT == 1 ? 4 : 2;
   static constexpr int WARP_ELEMS = 3 * SP * LD;  // q, k, v
+  static constexpr int WARP_BYTES = WARP_ELEMS * static_cast<int>(sizeof(bf16));
+  static constexpr int W0 = MT == 1 ? 4 : 2;
+  // as many of W0 warps as the static shared memory holds (d = 128 needs fewer)
+  static constexpr int WARPS = W0 * WARP_BYTES <= STATIC_SMEM       ? W0
+                               : (W0 / 2) * WARP_BYTES <= STATIC_SMEM ? W0 / 2
+                                                                      : 1;
 };
 
-template <int S>
-__global__ void __launch_bounds__(Cfg<S>::WARPS * 32)
+template <int S, int DP>
+__global__ void __launch_bounds__(Cfg<S, DP>::WARPS * 32)
     packed_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-               bf16* __restrict__ o, long long items, int H, float scale_log2) {
-  using P = Cfg<S>;
-  constexpr int SP = P::SP, MT = P::MT, NT = P::NT;
+               bf16* __restrict__ o, long long items, int H, int d, float scale_log2) {
+  using P = Cfg<S, DP>;
+  constexpr int SP = P::SP, MT = P::MT, NT = P::NT, LD = P::LD, CH = P::CH;
   __shared__ __align__(16) bf16 smem[P::WARPS * P::WARP_ELEMS];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -55,18 +69,19 @@ __global__ void __launch_bounds__(Cfg<S>::WARPS * 32)
   if (item >= items) return;  // the whole warp leaves together; no block barrier follows
   const long long n = item / H;
   const int h = static_cast<int>(item % H);
-  const long long C = static_cast<long long>(H) * D;
-  const long long base = n * S * C + static_cast<long long>(h) * D;
+  const long long C = static_cast<long long>(H) * d;
+  const long long base = n * S * C + static_cast<long long>(h) * d;
+  const int dch = d >> 3;  // 16-byte chunks of a head's row; chunks dch..CH-1 are padding
 
   bf16* sq = smem + warp * P::WARP_ELEMS;
   bf16* sk = sq + SP * LD;
   bf16* sv = sk + SP * LD;
 
-  for (int c = lane; c < 3 * SP * 8; c += 32) {
-    const int which = c / (SP * 8), rem = c % (SP * 8);
-    const int r = rem >> 3, col = (rem & 7) * 8;
+  for (int c = lane; c < 3 * SP * CH; c += 32) {
+    const int which = c / (SP * CH), rem = c % (SP * CH);
+    const int r = rem / CH, ch = rem % CH, col = ch * 8;
     bf16* dst = sq + which * SP * LD + r * LD + col;
-    if (r < S) {
+    if (r < S && ch < dch) {
       const bf16* src = (which == 0 ? q : which == 1 ? k : v) + base + r * C + col;
       cp_async16(dst, src);
     } else {
@@ -83,7 +98,7 @@ __global__ void __launch_bounds__(Cfg<S>::WARPS * 32)
 #pragma unroll
     for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
+    for (int ks = 0; ks < DP / 16; ++ks) {
       uint32_t a[4];
       ldmatrix_x4(a, frag_a_addr(sq, LD, mt * 16, ks * 16, lane));
 #pragma unroll
@@ -127,14 +142,14 @@ __global__ void __launch_bounds__(Cfg<S>::WARPS * 32)
       pf[nt][1] = pack_bf16(s[nt][2] / sum1, s[nt][3] / sum1);
     }
 
-    float acc[D / 8][4];
+    float acc[DP / 8][4];
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < MT; ++kk) {
       const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DP / 16; ++dp) {
         uint32_t bv[4];
         ldmatrix_x4_trans(bv, frag_a_addr(sv, LD, kk * 16, dp * 16, lane));
         mma_16816(acc[2 * dp], a, bv[0], bv[1]);
@@ -144,43 +159,62 @@ __global__ void __launch_bounds__(Cfg<S>::WARPS * 32)
     __syncwarp();  // this tile's q rows are consumed: stage the output there
     bf16* so = sq + mt * 16 * LD;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
+    for (int nt = 0; nt < DP / 8; ++nt) {
       *reinterpret_cast<uint32_t*>(so + g * LD + nt * 8 + 2 * t) = pack_bf16(acc[nt][0], acc[nt][1]);
       *reinterpret_cast<uint32_t*>(so + (g + 8) * LD + nt * 8 + 2 * t) =
           pack_bf16(acc[nt][2], acc[nt][3]);
     }
   }
   __syncwarp();
-  for (int c = lane; c < S * 8; c += 32) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    *reinterpret_cast<uint4*>(o + base + r * C + col) =
-        *reinterpret_cast<const uint4*>(sq + r * LD + col);
+  for (int c = lane; c < S * CH; c += 32) {
+    const int r = c / CH, ch = c % CH, col = ch * 8;
+    if (ch < dch)
+      *reinterpret_cast<uint4*>(o + base + r * C + col) =
+          *reinterpret_cast<const uint4*>(sq + r * LD + col);
   }
 }
 
-template <int S>
-int launch(const void* q, const void* k, const void* v, void* o, long long N, int H,
+template <int S, int DP>
+int launch(const void* q, const void* k, const void* v, void* o, long long N, int H, int d,
            float scale_log2, cudaStream_t stream) {
-  using P = Cfg<S>;
+  using P = Cfg<S, DP>;
   const long long items = N * H;
   const long long blocks = (items + P::WARPS - 1) / P::WARPS;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  packed_fwd<S><<<static_cast<unsigned>(blocks), P::WARPS * 32, 0, stream>>>(
+  packed_fwd<S, DP><<<static_cast<unsigned>(blocks), P::WARPS * 32, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), items, H, scale_log2);
+      static_cast<bf16*>(o), items, H, d, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int S>
+int launch_d(const void* q, const void* k, const void* v, void* o, long long N, int H, int d,
+             float scale_log2, cudaStream_t st) {
+  switch ((d + 15) / 16) {
+    case 1: return launch<S, 16>(q, k, v, o, N, H, d, scale_log2, st);
+    case 2: return launch<S, 32>(q, k, v, o, N, H, d, scale_log2, st);
+    case 3: return launch<S, 48>(q, k, v, o, N, H, d, scale_log2, st);
+    case 4: return launch<S, 64>(q, k, v, o, N, H, d, scale_log2, st);
+    case 5: return launch<S, 80>(q, k, v, o, N, H, d, scale_log2, st);
+    case 6: return launch<S, 96>(q, k, v, o, N, H, d, scale_log2, st);
+    case 7: return launch<S, 112>(q, k, v, o, N, H, d, scale_log2, st);
+    case 8: return launch<S, 128>(q, k, v, o, N, H, d, scale_log2, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" int moca_packed_attention(const void* q, const void* k, const void* v, void* o,
-                                     long long N, int S, int H, float scale_log2, void* stream) {
+                                     long long N, int S, int H, int d, float scale_log2,
+                                     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 0 || d > 128 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (S) {
-    case 8: return launch<8>(q, k, v, o, N, H, scale_log2, st);
-    case 16: return launch<16>(q, k, v, o, N, H, scale_log2, st);
-    case 24: return launch<24>(q, k, v, o, N, H, scale_log2, st);
-    case 32: return launch<32>(q, k, v, o, N, H, scale_log2, st);
+    case 8: return launch_d<8>(q, k, v, o, N, H, d, scale_log2, st);
+    case 16: return launch_d<16>(q, k, v, o, N, H, d, scale_log2, st);
+    case 24: return launch_d<24>(q, k, v, o, N, H, d, scale_log2, st);
+    case 32: return launch_d<32>(q, k, v, o, N, H, d, scale_log2, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from moca_tpu_torch.ops.attention import (
-    dot_product_attention, packed_attention, use_packed_tiny,
+    dot_product_attention, fused_qkv_attention, packed_attention, use_fused_qkv,
+    use_packed_tiny,
 )
 from moca_tpu_torch.ops.norms import GroupNorm32, LayerNorm32
 from moca_tpu_torch.schedule import timestep_embedding
@@ -221,11 +222,17 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context=None):
         h, d = self.heads, self.dim_head
+        out_proj = self.to_out[0]
+        if (context is None and h * d == x.shape[-1] == out_proj.out_features
+                and use_fused_qkv(x, x.shape[1], h * d, h, d)):
+            # the reference's opt-in fused branch (unet3d.py:326-340)
+            return fused_qkv_attention(x, self.to_q.weight, self.to_k.weight,
+                                       self.to_v.weight, out_proj.weight, out_proj.bias, h)
         q = self.to_q(x)
         ctx = x if context is None else context
         k, v = self.to_k(ctx), self.to_v(ctx)
         b, sq, sk = x.shape[0], x.shape[1], k.shape[1]
-        if context is None and use_packed_tiny(q, sq, sk, None, h * d):
+        if context is None and use_packed_tiny(q, sq, sk, None, h * d, h):
             return self.to_out(packed_attention(q, k, v, h))
         out = dot_product_attention(q.view(b, sq, h, d), k.view(b, sk, h, d),
                                     v.view(b, sk, h, d))

@@ -1,19 +1,28 @@
 """Hand-written Hopper attention kernels, their plain versions and their build.
 
-Port of moca_tpu/ops/flash_attention.py. The seven Pallas kernels there
-collapse into two CUDA kernels here (sources in `moca_tpu_torch/csrc/`, each
-with a note on what it replaces, what bounds it and how it is designed):
+Port of moca_tpu/ops/flash_attention.py. Its seven Pallas kernels are served
+by four CUDA kernels here (sources in `moca_tpu_torch/csrc/`, each with a note
+on what it replaces, what bounds it and how it is designed):
 
   * K1 `flash_attention(q, k, v)` — attention of q [B, Sq, H, D] over
-    k, v [B, Sk, H, D], D in {64, 128}; serves `_fa_kernel` and
-    `_fa_small_kernel` (csrc/flash_attention.cu);
-  * K2 `packed_attention(q, k, v, heads)` — [N, S, H*64] tiny-S attention on
-    packed heads, S in {8, 16, 24, 32}; serves `_packed_slice_kernel` and
-    `_packed_lane_kernel` (csrc/packed_attention.cu).
+    k, v [B, Sk, H, D], D in {64, 128}, online softmax; serves `_fa_kernel`
+    and `_fa_small_kernel` (csrc/flash_attention.cu);
+  * K2 `packed_attention(q, k, v, heads)` — [N, S, H*d] tiny-S attention on
+    packed heads, S in {8, 16, 24, 32}, d a multiple of 8 up to 128; serves
+    `_packed_slice_kernel`, `_packed_lane_kernel` and `_packed_tiny_kernel`
+    (csrc/packed_attention.cu). The reference's `_packed_tiny_kernel` takes
+    any d; other head widths take the plain path (ops/attention.py);
+  * K3 `fused_qkv_attention(x, wq, wk, wv, wo, bo, heads)` — q/k/v
+    projections, tiny-S attention and the out projection of [N, S, C] in one
+    kernel, d = 64; serves `_fused_qkv_kernel` (csrc/fused_qkv_attention.cu);
+  * K4 `flash_attention_onepass(q, k, v)` — K1's function with the row max
+    taken before any exponent and nothing rescaled, D in {64, 128}; serves
+    `_fa_onepass_kernel` (csrc/flash_onepass.cu).
 
 Each wrapper runs its plain PyTorch version only when handed CPU tensors. On
 CUDA tensors it launches the kernel or raises — there is no fallback — and
-adds one to its `launches` tally, keyed by shape, per launch.
+adds one to its `launches` tally, keyed by shape, per launch. Each plain
+version rounds where its Pallas body rounds.
 
 The kernels are compiled from the repository's sources with `nvcc` for
 `sm_90a` (one process per source, started together) into `build/kernels/`
@@ -34,7 +43,8 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = {"flash": "flash_attention.cu", "packed": "packed_attention.cu"}
+_SOURCES = {"flash": "flash_attention.cu", "packed": "packed_attention.cu",
+            "fused": "fused_qkv_attention.cu", "onepass": "flash_onepass.cu"}
 _HEADERS = ("mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -67,6 +77,39 @@ def packed_attention_plain(q, k, v, heads: int):
     d = c // heads
     split = lambda t: t.reshape(n, s, heads, d)
     return attention_plain(split(q), split(k), split(v)).reshape(n, s, c)
+
+
+def flash_attention_onepass_plain(q, k, v):
+    """`_fa_onepass_kernel`'s arithmetic on [B, S, H, D] (flash_attention.py:184-207):
+    q scaled by scale*log2(e) in fp32 and rounded to its type; fp32 logits;
+    p = exp2(s - row max), unnormalised, cast to v's type for PV with fp32
+    accumulation; divided by the fp32 row sum and rounded once."""
+    qs = (q.float() * (q.shape[-1] ** -0.5 * _LOG2E)).to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return (acc / p.sum(dim=-1).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+def fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads: int):
+    """`_fused_qkv_kernel`'s arithmetic (flash_attention.py:447-497) on x
+    [N, S, C] with nn.Linear-layout weights [out, in] and bias [C]: q, k, v
+    rounded to x's type after fp32 accumulation; fp32 softmax, probabilities
+    rounded before PV; each head's output rounded; the out projection
+    accumulated in fp32 and rounded, then bo added in x's type."""
+    n, s, c = x.shape
+    d = c // heads
+    x2 = x.reshape(n * s, c).float()
+
+    def proj(w):
+        return (x2 @ w.float().t()).to(x.dtype).reshape(n, s, heads, d)
+
+    q, k, v = proj(wq), proj(wk), proj(wv)
+    logits = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) * d ** -0.5
+    p = torch.softmax(logits, dim=-1).to(x.dtype)
+    attn = torch.einsum("nhqk,nkhd->nqhd", p.float(), v.float()).to(x.dtype)
+    out = (attn.reshape(n * s, c).float() @ wo.float().t()).to(x.dtype)
+    return (out + bo.to(x.dtype)).reshape(n, s, c)
 
 
 # ---------------------------------------------------------------------------
@@ -123,32 +166,44 @@ def build_kernels() -> dict:
     return targets
 
 
-def _lib(name: str):
+_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_ENTRY = {  # library -> (C entry point, its argtypes)
+    "flash": ("moca_flash_attention", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p]),
+    "packed": ("moca_packed_attention", [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
+    "fused": ("moca_fused_qkv_attention", [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _f, _p]),
+    "onepass": ("moca_flash_onepass", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p]),
+}
+
+
+def _entry(name: str):
+    """The C entry point of library `name`, built and loaded at first use."""
     if name not in _libs:
-        path = build_kernels()[name]
-        lib = ctypes.CDLL(str(path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == "flash":
-            lib.moca_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, f, p]
-            lib.moca_flash_attention.restype = i
-        else:
-            lib.moca_packed_attention.argtypes = [p, p, p, p, ctypes.c_longlong,
-                                                  i, i, f, p]
-            lib.moca_packed_attention.restype = i
-        lib.moca_cuda_error_string.argtypes = [i]
+        lib = ctypes.CDLL(str(build_kernels()[name]))
+        fn, argtypes = _ENTRY[name]
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _i
+        lib.moca_cuda_error_string.argtypes = [_i]
         lib.moca_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
-    return _libs[name]
+    return _libs[name], getattr(_libs[name], _ENTRY[name][0])
 
 
-def _check_inputs(q, k, v, what: str):
-    for t in (q, k, v):
+def _check_inputs(q, *rest, what: str):
+    """One CUDA device, bfloat16, contiguous and 16-byte aligned (the kernels
+    copy 16-byte chunks)."""
+    for t in (q, *rest):
         if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"{what}: q, k, v must lie on one CUDA device")
+            raise ValueError(f"{what}: all inputs must lie on one CUDA device")
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{what}: the kernel takes bfloat16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: inputs must be 16-byte aligned")
+
+
+def _count(fn, key):
+    fn.launches[key] = fn.launches.get(key, 0) + 1
 
 
 def _raise_on(lib, err: int, what: str):
@@ -161,6 +216,27 @@ def _raise_on(lib, err: int, what: str):
 # Wrappers
 # ---------------------------------------------------------------------------
 
+def _attention_call(wrapper, name: str, q, k, v):
+    """Launch K1 or K4 (library `name`) on q [B, Sq, H, D] and k, v
+    [B, Sk, H, D]: the two take the same arguments and shapes."""
+    what = wrapper.__name__
+    _check_inputs(q, k, v, what=what)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d not in (64, 128) or k.shape != (b, sk, h, d) or v.shape != k.shape:
+        raise ValueError(f"{what}: unsupported shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"{what}: batch and heads must be < 65536")
+    lib, fn = _entry(name)
+    o = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, h, d,
+             d ** -0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, what)
+    _count(wrapper, (b, sq, sk, h, d))
+    return o
+
+
 def flash_attention(q, k, v):
     """K1: attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] (D in
     {64, 128}); softmax in fp32.
@@ -168,53 +244,86 @@ def flash_attention(q, k, v):
     CPU tensors take `attention_plain`; CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
-    _check_inputs(q, k, v, "flash_attention")
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if d not in (64, 128) or k.shape != (b, sk, h, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: unsupported shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    if b > 65535 or h > 65535:
-        raise ValueError("flash_attention: batch and heads must be < 65536")
-    lib = _lib("flash")
-    o = torch.empty_like(q)
-    err = lib.moca_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, h, d,
-        d ** -0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, "flash_attention")
-    key = (b, sq, sk, h, d)
-    flash_attention.launches[key] = flash_attention.launches.get(key, 0) + 1
-    return o
+    return _attention_call(flash_attention, "flash", q, k, v)
 
 
 def packed_attention(q, k, v, heads: int):
-    """K2: self-attention on packed heads [N, S, heads*64], S in {8,16,24,32}.
+    """K2: self-attention on packed heads [N, S, heads*d], S in {8,16,24,32},
+    d % 8 == 0 and d <= 128.
 
     CPU tensors take `packed_attention_plain`; CUDA tensors launch the
     kernel."""
     if q.device.type == "cpu":
         return packed_attention_plain(q, k, v, heads)
-    _check_inputs(q, k, v, "packed_attention")
+    _check_inputs(q, k, v, what="packed_attention")
     n, s, c = q.shape
-    if (c != heads * 64 or s not in (8, 16, 24, 32) or k.shape != q.shape
+    if (not packed_kernel_takes(s, c, heads) or k.shape != q.shape
             or v.shape != q.shape):
         raise ValueError(f"packed_attention: unsupported shape {tuple(q.shape)} "
-                         f"with {heads} heads (needs d=64, S in 8/16/24/32)")
-    lib = _lib("packed")
+                         f"with {heads} heads (needs d % 8 == 0, d <= 128, "
+                         f"S in 8/16/24/32)")
+    d = c // heads
+    lib, fn = _entry("packed")
     o = torch.empty_like(q)
-    err = lib.moca_packed_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, s, heads,
-        64 ** -0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, s, heads, d,
+             d ** -0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, "packed_attention")
-    key = (n, s, c)
-    packed_attention.launches[key] = packed_attention.launches.get(key, 0) + 1
+    _count(packed_attention, (n, s, c, heads))
     return o
 
 
+def packed_kernel_takes(seq_len: int, channels: int, heads: int) -> bool:
+    """The shapes K2 takes: S in {8,16,24,32}, heads * d == C with d a
+    multiple of 8 up to 128."""
+    return (seq_len in (8, 16, 24, 32) and heads > 0 and channels % heads == 0
+            and (channels // heads) % 8 == 0 and 0 < channels // heads <= 128)
+
+
+def fused_qkv_attention(x, wq, wk, wv, wo, bo, heads: int):
+    """K3: to_out(attention(x wq^T, x wk^T, x wv^T)) + bo on x [N, S, C],
+    S in {8,16,24,32}, C = heads * 64 <= 1280; weights in nn.Linear's [out, in]
+    layout [C, C], bias [C].
+
+    CPU tensors take `fused_qkv_attention_plain`; CUDA tensors launch the
+    kernel."""
+    if x.device.type == "cpu":
+        return fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads)
+    _check_inputs(x, wq, wk, wv, wo, bo, what="fused_qkv_attention")
+    n, s, c = x.shape
+    if (s not in (8, 16, 24, 32) or c != heads * 64 or c > 1280
+            or any(w.shape != (c, c) for w in (wq, wk, wv, wo)) or bo.shape != (c,)):
+        raise ValueError(f"fused_qkv_attention: unsupported shapes x {tuple(x.shape)} "
+                         f"with {heads} heads (needs d = 64, C <= 1280, S in 8/16/24/32, "
+                         f"[C, C] weights and a [C] bias)")
+    lib, fn = _entry("fused")
+    o = torch.empty_like(x)
+    err = fn(x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
+             bo.data_ptr(), o.data_ptr(), n, s, c, 64 ** -0.5 * _LOG2E,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, err, "fused_qkv_attention")
+    _count(fused_qkv_attention, (n, s, c))
+    return o
+
+
+def flash_attention_onepass(q, k, v):
+    """K4: attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] (D in
+    {64, 128}) with the row max taken over the whole row before any exponent.
+
+    CPU tensors take `flash_attention_onepass_plain`; CUDA tensors launch the
+    kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_onepass_plain(q, k, v)
+    return _attention_call(flash_attention_onepass, "onepass", q, k, v)
+
+
+KERNELS = (flash_attention, packed_attention, fused_qkv_attention, flash_attention_onepass)
+
+
 def reset_launch_counts():
-    """Empty both wrappers' launch tallies, {shape: launches} with shape
-    (B, Sq, Sk, H, D) for flash and (N, S, C) for packed."""
-    for fn in (flash_attention, packed_attention):
+    """Empty every wrapper's launch tally, {shape: launches} with shape
+    (B, Sq, Sk, H, D) for K1 and K4, (N, S, C, heads) for K2 and (N, S, C)
+    for K3 (whose head width is always 64)."""
+    for fn in KERNELS:
         fn.launches = {}
 
 

@@ -6,11 +6,13 @@ JAX nor the JAX package, so on a machine without JAX it runs on its own:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance: the largest relative L2 error of one output row (the d-vector of
-one query and head), ||kernel - plain|| / ||plain||, at most 2e-2. Kernel and
-plain version round the probabilities and the output to bf16 at different
-points, a few 2^-8 relative. The same limit is held in chip_smoke.py, and
-each case also checks that a planted fault (the last kv tile or key left
-out, the softmax scale halved) exceeds it.
+one query and head; for K3 a 64-column slice of one output token),
+||kernel - plain|| / ||plain||, at most 2e-2. Kernel and plain version round
+the probabilities and the output to bf16 at different points, a few 2^-8
+relative. The same limit is held in chip_smoke.py, and each case also checks
+that planted faults exceed it: for K1, K2 and K4 the last kv tile or key left
+out and the softmax scale halved; for K3 Wq halved and the last head's Wv
+rows zeroed.
 """
 
 import pytest
@@ -67,6 +69,90 @@ def test_cuda_kernel_matches_plain(kernel, shape):
         assert max_row_rel_err(fault, ref, d) > TOL
 
 
+def _check(out, ref, faults, d):
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert max_row_rel_err(out, ref, d) <= TOL
+    for fault in faults:
+        assert max_row_rel_err(fault, ref, d) > TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,c,heads", [
+    (64, 16, 40, 5),     # d = 8: padded to the mma depth
+    (64, 16, 128, 4),    # d = 32
+    (64, 16, 80, 2),     # d = 40: padded to 48
+    (64, 16, 256, 2),    # d = 128
+    (16, 32, 256, 2),    # d = 128 at S = 32: one warp a block
+])
+def test_cuda_packed_attention_at_other_head_widths(n, s, c, heads):
+    """K2 at the head widths of `_packed_tiny_kernel`'s route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn((n, s, c), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    tfa.reset_launch_counts()
+    out = tfa.packed_attention(q, k, v, heads)
+    assert tfa.packed_attention.launches == {(n, s, c, heads): 1}
+    v_cut = v.clone()
+    v_cut[:, -1] = 0
+    faults = (tfa.packed_attention(q, k, v_cut, heads), tfa.packed_attention(q * 0.5, k, v, heads))
+    _check(out, tfa.packed_attention_plain(q, k, v, heads), faults, c // heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,c", [
+    (65, 16, 320),     # 4 sequences a block and a partial last block
+    (33, 16, 1280),    # 2 sequences a block (32 tokens) and a partial last block
+    (20, 8, 128),      # S = 8: two sequences in one m16 tile
+    (7, 24, 384),      # S = 24: padded rows read past the sequence
+])
+def test_cuda_fused_qkv_attention_matches_plain(n, s, c):
+    """K3 against its plain version; weights N(0, 1/C) so that q, k, v and
+    the logits are O(1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rnd = lambda *shape, scale=1.0: (torch.randn(shape, generator=gen, device="cuda")
+                                     * scale).to(torch.bfloat16)
+    heads = c // 64
+    x = rnd(n, s, c)
+    wq, wk, wv, wo = (rnd(c, c, scale=c ** -0.5) for _ in range(4))
+    bo = rnd(c, scale=0.1)
+    tfa.reset_launch_counts()
+    out = tfa.fused_qkv_attention(x, wq, wk, wv, wo, bo, heads)
+    assert tfa.fused_qkv_attention.launches == {(n, s, c): 1}
+    wv_cut = wv.clone()
+    wv_cut[-64:] = 0  # the last head's v rows
+    faults = (tfa.fused_qkv_attention(x, wq * 0.5, wk, wv, wo, bo, heads),
+              tfa.fused_qkv_attention(x, wq, wk, wv_cut, wo, bo, heads))
+    _check(out, tfa.fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads), faults, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (1, 2560, 2560, 2, 64),   # self-attention at S = 2560, two row tiles a warp
+    (2, 640, 154, 4, 64),     # text cross-attention, kv = 154: ragged last tile
+    (2, 160, 154, 2, 64),     # one row tile a warp
+    (1, 300, 200, 2, 128),    # D = 128
+])
+def test_cuda_flash_attention_onepass_matches_plain(b, sq, sk, h, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    tfa.reset_launch_counts()
+    out = tfa.flash_attention_onepass(q, k, v)
+    assert tfa.flash_attention_onepass.launches == {(b, sq, sk, h, d): 1}
+    cut = sk - 64
+    faults = (tfa.flash_attention_onepass(q, k[:, :cut].contiguous(), v[:, :cut].contiguous()),
+              tfa.flash_attention_onepass(q * 0.5, k, v))
+    _check(out, tfa.flash_attention_onepass_plain(q, k, v), faults, d)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
@@ -74,6 +160,15 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     q = torch.zeros(2, 160, 2, 64, device="cuda")  # fp32: no kernel, no fallback
     with pytest.raises(ValueError, match="bfloat16"):
         tfa.flash_attention(q, q, q)
-    p = torch.zeros(4, 16, 96, device="cuda", dtype=torch.bfloat16)  # d = 48
+    with pytest.raises(ValueError, match="bfloat16"):
+        tfa.flash_attention_onepass(q, q, q)
+    p = torch.zeros(4, 16, 72, device="cuda", dtype=torch.bfloat16)  # d = 36
     with pytest.raises(ValueError, match="unsupported"):
         tfa.packed_attention(p, p, p, 2)
+    p = torch.zeros(4, 40, 128, device="cuda", dtype=torch.bfloat16)  # S = 40
+    with pytest.raises(ValueError, match="unsupported"):
+        tfa.packed_attention(p, p, p, 2)
+    x = torch.zeros(4, 16, 256, device="cuda", dtype=torch.bfloat16)  # d = 32
+    w = torch.zeros(256, 256, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported"):
+        tfa.fused_qkv_attention(x, w, w, w, w, w[0], 8)

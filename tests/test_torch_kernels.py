@@ -143,7 +143,8 @@ def test_plain_attention_matches_xla_attention(sq, sk, with_bias):
 
 def test_dispatch_routes_like_the_reference():
     """K1 at the spatial self-attention shapes, the plain path for S=40,
-    kv=77 and a bias; K2 for the temporal widths, not for kv != S."""
+    kv=77 and a bias; K2 for the temporal widths and head widths that are
+    multiples of 8 up to 128, not for kv != S."""
     for s in (2560, 640, 160):
         assert tatt.flash_shape_ok(s, s, 64, None)
     assert not tatt.flash_shape_ok(40, 40, 64, None)       # mid block
@@ -152,13 +153,17 @@ def test_dispatch_routes_like_the_reference():
     assert not tatt.flash_shape_ok(2560, 2560, 64, 0.0)    # biased
     assert not tatt.flash_shape_ok(2560, 2560, 8, None)    # head width
     for c in (320, 512, 640, 1280):
-        assert tatt.packed_shape_ok(16, 16, None, c)
-    assert not tatt.packed_shape_ok(16, 77, None, 320)
-    assert not tatt.packed_shape_ok(40, 40, None, 1280)
-    assert not tatt.packed_shape_ok(16, 16, 0.0, 320)
-    assert not tatt.packed_shape_ok(16, 16, None, 2048)
+        assert tatt.packed_shape_ok(16, 16, None, c, c // 64)
+    for c, heads in ((32, 4), (64, 2), (320, 8), (256, 2), (80, 2)):  # d = 8, 32, 40, 128, 40
+        assert tatt.packed_shape_ok(16, 16, None, c, heads)
+    assert not tatt.packed_shape_ok(16, 77, None, 320, 5)
+    assert not tatt.packed_shape_ok(40, 40, None, 1280, 20)
+    assert not tatt.packed_shape_ok(16, 16, 0.0, 320, 5)
+    assert not tatt.packed_shape_ok(16, 16, None, 2048, 32)
+    assert not tatt.packed_shape_ok(16, 16, None, 72, 2)    # d = 36: plain path
+    assert not tatt.packed_shape_ok(16, 16, None, 272, 2)   # d = 136: plain path
     q = torch.zeros(4, 16, 320)
-    assert not tatt.use_packed_tiny(q, 16, 16, None, 320)  # CPU tensors: plain
+    assert not tatt.use_packed_tiny(q, 16, 16, None, 320, 5)  # CPU tensors: plain
 
 
 def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
@@ -166,8 +171,14 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     q, k, v = (_t(_rand((2, 16, 2, 64), 50 + i)) for i in range(3))
     np.testing.assert_array_equal(tfa.flash_attention(q, k, v).numpy(),
                                   tfa.attention_plain(q, k, v).numpy())
+    np.testing.assert_array_equal(tfa.flash_attention_onepass(q, k, v).numpy(),
+                                  tfa.flash_attention_onepass_plain(q, k, v).numpy())
     p = _t(_rand((3, 16, 128), 60))
     np.testing.assert_array_equal(tfa.packed_attention(p, p, p, 2).numpy(),
                                   tfa.packed_attention_plain(p, p, p, 2).numpy())
-    assert tfa.flash_attention.launches == {}
-    assert tfa.packed_attention.launches == {}
+    w = [_t(_rand((128, 128), 61 + i) * 0.1) for i in range(4)]
+    bo = _t(_rand((128,), 65))
+    np.testing.assert_array_equal(tfa.fused_qkv_attention(p, *w, bo, 2).numpy(),
+                                  tfa.fused_qkv_attention_plain(p, *w, bo, 2).numpy())
+    for fn in tfa.KERNELS:
+        assert fn.launches == {}
