@@ -10,7 +10,11 @@ Phases, each failing loudly (non-zero exit, no result line):
      U-Net gives it), show that faults planted through the kernel's inputs
      fail that check, and time the kernel, the plain version and one PyTorch
      library call for the same work (for K3 multi_head_attention_forward with
-     separate projection weights, beside the port's unfused route);
+     separate projection weights, beside the port's unfused route); K3 and K4
+     also at shapes no run launches: K3 with a ragged last tile, below one
+     tile, with its heads split over a cluster and a ragged last tile, and at
+     C=512 for S=8/24/32 (its rows carry the path taken and the cluster
+     size); K4 at a ragged Sk and on a long row;
   3. check the port's U-Net with the kernels (bf16, GPU) against its plain
      path (fp32, CPU) on a small input, three times: as it ships; with
      MOCA_TPU_FA_FUSED_QKV=1 MOCA_TPU_FA_ONEPASS=1 and a 154-token context
@@ -328,7 +332,10 @@ def check_fused(n, s, c, gen, rows, reps=10):
     unfused_ms = cuda_ms(lambda: F.linear(fa.packed_attention(
         F.linear(x, wq), F.linear(x, wk), F.linear(x, wv), heads), wo, bo), reps)
     bms, by = fused_qkv_bound_ms(n, s, c)
-    print(f"[K3 fused_qkv_attention N={n} S={s} C={c}] row_rel_err {rel:.3e} (tol {KERNEL_TOL}, "
+    cl = fa.fused_qkv_head_split(n, s, c)  # the wrapper's cluster size
+    path = "head_split" if cl > 1 else "tiles"
+    print(f"[K3 fused_qkv_attention N={n} S={s} C={c} ({path}, cluster {cl})] row_rel_err "
+          f"{rel:.3e} (tol {KERNEL_TOL}, "
           f"planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} kernel {ms:.4f} ms "
           f"plain {plain_ms:.4f} ms library (multi_head_attention_forward, row_rel_err "
           f"{lib_rel:.3e} against the plain version) {lib_ms:.4f} ms unfused route (4 linears "
@@ -339,7 +346,8 @@ def check_fused(n, s, c, gen, rows, reps=10):
                      shape=(n, s, c), max_abs_err=err, max_row_rel_err=rel,
                      fault_row_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
                      bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                     library_row_rel_err=lib_rel, unfused_route_ms=unfused_ms))
+                     library_row_rel_err=lib_rel, unfused_route_ms=unfused_ms,
+                     path=path, cluster=cl))
 
 
 def main_path_shapes(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int,
@@ -406,6 +414,17 @@ def phase_kernels(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int):
         check_fused(n, s, c, gen, rows)
     for b, sq, sk, h, _ in k4:
         check_flash(b, sq, sk, h, gen, rows, onepass=True)
+    # K3 and K4 at shapes no run of the path launches: K3 with a ragged last
+    # tile (5.25 tiles), below one tile, with its heads split over a cluster
+    # and a partial last tile, and at C = 512 for S = 8, 24, 32; K4 at a
+    # ragged Sk and on a long row (the route sends such rows at small Sq)
+    check_fused(21, 16, 320, gen, rows)
+    check_fused(3, 16, 320, gen, rows)
+    check_fused(33, 16, 1280, gen, rows)
+    for s_, n_ in ((8, 4096), (24, 1024), (32, 1024)):
+        check_fused(n_, s_, 512, gen, rows)
+    check_flash(4, 2560, 3000, 5, gen, rows, onepass=True)
+    check_flash(1, 128, 8192, 5, gen, rows, onepass=True)
     # K2 at the head widths of `_packed_tiny_kernel`'s route, full-width N
     for n, c, d in ((rows_fifo * 2560, 320, 8), (rows_fifo * 2560, 320, 32),
                     (rows_fifo * 640, 640, 128)):

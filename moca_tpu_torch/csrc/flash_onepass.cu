@@ -34,6 +34,16 @@
 // accumulators as the A fragments of PV, V read with ldmatrix.trans, heads
 // read by stride from [B, S, H, D], ragged tails zero-filled and masked with
 // -inf. The q scale is applied to the q fragments in registers.
+//
+// Not yet redesigned for Hopper. A design that computes QK^T once (4*B*H*Sq*
+// Sk*D operations) was measured and dropped: a cluster of up to 8 CTAs held a
+// 64-row q tile's fp32 logits in its distributed shared memory (TMA, wgmma,
+// the row max and the partial PV results exchanged across the cluster). Each
+// CTA did little work for fixed costs that the cluster multiplied (set-up,
+// two exchanges, the reduction), and it ran 1.5-2.2x slower than these two
+// sweeps at every main-path shape on an H100 (PERF.md section 6). This kernel
+// already runs its 6*B*H*Sq*Sk*D operations at ~300 TFLOP/s there, so a
+// second sweep on wgmma can gain little; the next step is K1 on wgmma.
 #include "mma.cuh"
 
 using namespace moca;

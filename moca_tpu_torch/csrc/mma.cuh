@@ -61,6 +61,14 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// The transpose of an 8x8 b16 matrix held across the warp, each lane (g, t)
+// holding elements (g, 2t..2t+1): afterwards it holds (2t, g) and (2t+1, g).
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t r;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(r) : "r"(x));
+  return r;
+}
+
 // Two floats -> packed bf16x2 (lo in the low half), round to nearest.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

@@ -14,10 +14,16 @@ on what it replaces, what bounds it and how it is designed):
     any d; other head widths take the plain path (ops/attention.py);
   * K3 `fused_qkv_attention(x, wq, wk, wv, wo, bo, heads)` — q/k/v
     projections, tiny-S attention and the out projection of [N, S, C] in one
-    kernel, d = 64; serves `_fused_qkv_kernel` (csrc/fused_qkv_attention.cu);
+    kernel, d = 64: the weights streamed by TMA into wgmma, a tile's heads
+    split over a cluster where `fused_qkv_head_split` says so; serves
+    `_fused_qkv_kernel` (csrc/fused_qkv_attention.cu);
   * K4 `flash_attention_onepass(q, k, v)` — K1's function with the row max
-    taken before any exponent and nothing rescaled, D in {64, 128}; serves
-    `_fa_onepass_kernel` (csrc/flash_onepass.cu).
+    taken before any exponent and nothing rescaled, D in {64, 128}: two
+    sweeps over KV; serves `_fa_onepass_kernel` (csrc/flash_onepass.cu).
+
+The Hopper pieces K3 uses (mbarriers, TMA, wgmma, clusters) are in
+csrc/hopper.cuh; its tensor maps are encoded inside the library's C entry
+point through the runtime's driver entry point, so no library links -lcuda.
 
 Each wrapper runs its plain PyTorch version only when handed CPU tensors. On
 CUDA tensors it launches the kernel or raises — there is no fallback — and
@@ -45,7 +51,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = {"flash": "flash_attention.cu", "packed": "packed_attention.cu",
             "fused": "fused_qkv_attention.cu", "onepass": "flash_onepass.cu"}
-_HEADERS = ("mma.cuh",)
+_HEADERS = ("mma.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LOG2E = 1.4426950408889634
@@ -170,7 +176,8 @@ _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 _ENTRY = {  # library -> (C entry point, its argtypes)
     "flash": ("moca_flash_attention", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p]),
     "packed": ("moca_packed_attention", [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
-    "fused": ("moca_fused_qkv_attention", [_p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _f, _p]),
+    "fused": ("moca_fused_qkv_attention",
+              [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
     "onepass": ("moca_flash_onepass", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p]),
 }
 
@@ -279,10 +286,31 @@ def packed_kernel_takes(seq_len: int, channels: int, heads: int) -> bool:
             and (channels // heads) % 8 == 0 and 0 < channels // heads <= 128)
 
 
+# K3's head split: at C = 1280 (one weight block a stage), where the tiles
+# leave most of the card's SMs idle, a cluster of `split` CTAs shares one tile
+# and splits its heads and output blocks, so that the grid fills up to one wave.
+FUSED_SPLIT_MAX_CTAS = 132  # one wave on an H100 SXM (132 SMs)
+
+
+def fused_qkv_head_split(n: int, s: int, c: int) -> int:
+    """CTAs that split one tile's heads at x [n, s, c]: at C = 1280 the
+    largest of 4 and 2 that divides the heads and keeps tiles * split within
+    FUSED_SPLIT_MAX_CTAS; else 1 (no split, as at every narrower width)."""
+    if c <= 640:
+        return 1
+    tiles = -(-(n * s) // ((64 // s) * s))
+    for split in (4, 2):
+        if (c // 64) % split == 0 and tiles * split <= FUSED_SPLIT_MAX_CTAS:
+            return split
+    return 1
+
+
 def fused_qkv_attention(x, wq, wk, wv, wo, bo, heads: int):
     """K3: to_out(attention(x wq^T, x wk^T, x wv^T)) + bo on x [N, S, C],
     S in {8,16,24,32}, C = heads * 64 <= 1280; weights in nn.Linear's [out, in]
-    layout [C, C], bias [C].
+    layout [C, C], bias [C]. Each tile's heads are split over clusters of
+    `fused_qkv_head_split` CTAs. The wrapper passes the kernel a bf16 scratch
+    of x's shape: the heads' outputs go through device memory.
 
     CPU tensors take `fused_qkv_attention_plain`; CUDA tensors launch the
     kernel."""
@@ -297,8 +325,10 @@ def fused_qkv_attention(x, wq, wk, wv, wo, bo, heads: int):
                          f"[C, C] weights and a [C] bias)")
     lib, fn = _entry("fused")
     o = torch.empty_like(x)
+    scratch = torch.empty_like(x)  # the heads' outputs, read back by the out projection
     err = fn(x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
-             bo.data_ptr(), o.data_ptr(), n, s, c, 64 ** -0.5 * _LOG2E,
+             bo.data_ptr(), o.data_ptr(), scratch.data_ptr(),
+             n, s, c, fused_qkv_head_split(n, s, c), 64 ** -0.5 * _LOG2E,
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "fused_qkv_attention")
     _count(fused_qkv_attention, (n, s, c))

@@ -103,10 +103,23 @@ def test_cuda_packed_attention_at_other_head_widths(n, s, c, heads):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,s,c", [
-    (65, 16, 320),     # 4 sequences a block and a partial last block
-    (33, 16, 1280),    # 2 sequences a block (32 tokens) and a partial last block
+    (65, 16, 320),     # 4 sequences a tile and a partial last tile, two tiles a CTA
+    (33, 16, 1280),    # C = 1280: heads split over a cluster of 4, scratch
     (20, 8, 128),      # S = 8: two sequences in one m16 tile
     (7, 24, 384),      # S = 24: padded rows read past the sequence
+    (3, 16, 320),      # N below one tile
+    (21, 16, 320),     # 5.25 tiles: a CTA with one ragged tile
+    (70, 16, 512),     # C = 512 (the init attention's width)
+    (300, 16, 1280),   # C = 1280 without a split: one weight block a stage
+    (80, 16, 1280),    # the middle block's shape: heads split over 4 CTAs
+    (40, 8, 640),      # S = 8 at C = 640
+    (30, 24, 640),     # S = 24 at C = 640: 48-token tiles
+    (16, 32, 1280),    # S = 32 at C = 1280, heads split
+    (4757, 16, 320),   # 3 tiles a CTA (attention from registers), a ragged last CTA
+    (9515, 8, 320),    # S = 8: two sequences a warp, 3 tiles a CTA
+    (3181, 16, 640),   # 2 tiles a CTA on one-block stages
+    (3181, 16, 512),   # 2 tiles a CTA on three-block stages
+    (1601, 32, 320),   # S = 32: 2 tiles a CTA with q/k/v staging
 ])
 def test_cuda_fused_qkv_attention_matches_plain(n, s, c):
     """K3 against its plain version; weights N(0, 1/C) so that q, k, v and
@@ -136,6 +149,9 @@ def test_cuda_fused_qkv_attention_matches_plain(n, s, c):
     (2, 640, 154, 4, 64),     # text cross-attention, kv = 154: ragged last tile
     (2, 160, 154, 2, 64),     # one row tile a warp
     (1, 300, 200, 2, 128),    # D = 128
+    (1, 200, 2000, 2, 64),    # Sk = 2000: a ragged last tile of 16 keys
+    (1, 100, 3000, 1, 64),    # Sk = 3000, ragged
+    (1, 128, 8192, 1, 64),    # a long row, as the route sends at small Sq
 ])
 def test_cuda_flash_attention_onepass_matches_plain(b, sq, sk, h, d):
     if not torch.cuda.is_available():

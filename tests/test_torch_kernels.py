@@ -182,3 +182,21 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
                                   tfa.fused_qkv_attention_plain(p, *w, bo, 2).numpy())
     for fn in tfa.KERNELS:
         assert fn.launches == {}
+
+
+def test_kernel_shape_choices_at_the_main_path_and_their_limits():
+    """The head split that the K3 wrapper passes to its C entry point (the
+    CTAs of a cluster that share one tile): at the switched main path's
+    shapes, and at its limits."""
+    k3_fifo = [(40960, 16, 320), (10240, 16, 640), (2560, 16, 1280), (40960, 16, 512),
+               (640, 16, 1280), (5120, 16, 320), (1280, 16, 640), (320, 16, 1280),
+               (5120, 16, 512)]
+    for n, s, c in k3_fifo:  # these grids fill the card: no split
+        assert tfa.fused_qkv_head_split(n, s, c) == 1
+    assert tfa.fused_qkv_head_split(80, 16, 1280) == 4    # the middle block: 20 tiles
+    assert tfa.fused_qkv_head_split(132, 16, 1280) == 4   # 33 tiles x 4 = 132 CTAs
+    assert tfa.fused_qkv_head_split(136, 16, 1280) == 2   # 34 tiles: x 4 > 132, x 2 <= 132
+    assert tfa.fused_qkv_head_split(300, 16, 1280) == 1   # 75 tiles: x 2 > 132
+    assert tfa.fused_qkv_head_split(3, 16, 1280) == 4     # below one tile
+    assert tfa.fused_qkv_head_split(8, 24, 1280) == 4     # S = 24: 48-token tiles, 4 of them
+    assert tfa.fused_qkv_head_split(80, 16, 640) == 1     # only at C = 1280
