@@ -14,7 +14,11 @@ Phases, each failing loudly (non-zero exit, no result line):
      also at shapes no run launches: K3 with a ragged last tile, below one
      tile, with its heads split over a cluster and a ragged last tile, and at
      C=512 for S=8/24/32 (its rows carry the path taken and the cluster
-     size); K4 at a ragged Sk and on a long row;
+     size); K4 at a ragged Sk and on a long row. K1 and K4 are held to their
+     plain versions and timed on each of their designs (mma.sync, wgmma with
+     64- and 128-row kv tiles); their rows carry the design the library
+     chose at that shape (`path`) and every design's time (`path_ms`). K1
+     and K4 also run the adversarial softmax inputs on every design;
   3. check the port's U-Net with the kernels (bf16, GPU) against its plain
      path (fp32, CPU) on a small input, three times: as it ships; with
      MOCA_TPU_FA_FUSED_QKV=1 MOCA_TPU_FA_ONEPASS=1 and a 154-token context
@@ -189,14 +193,17 @@ def _chunked(fn, q, k, v, chunk):
 def check_flash(b, sq, sk, h, gen, rows, reps=10, onepass=False):
     """K1 (or K4 with `onepass`) at q [b, sq, h, 64] over k, v [b, sk, h, 64]
     against its plain version (batch-chunked: the plain fp32 logits at b=256,
-    s=2560 would take 33.5 GB)."""
+    s=2560 would take 33.5 GB), on the design its library chooses and, held
+    to the same check and timed beside it, on each of the others."""
     import torch
     import torch.nn.functional as F
     from moca_tpu_torch.ops import flash_attention as fa
 
     kernel = fa.flash_attention_onepass if onepass else fa.flash_attention
     plain = fa.flash_attention_onepass_plain if onepass else fa.attention_plain
+    lib_name = "onepass" if onepass else "flash"
     label = "K4 flash_attention_onepass" if onepass else "K1 flash_attention"
+    path = fa.attention_path(lib_name, b, sq, sk, h, 64)
     q, k, v = (_randn_bf16((b, s, h, 64), gen) for s in (sq, sk, sk))
     chunk = max(1, (2 << 30) // (h * sq * sk * 4))
     out = kernel(q, k, v)
@@ -204,18 +211,31 @@ def check_flash(b, sq, sk, h, gen, rows, reps=10, onepass=False):
     ref = _chunked(plain, q, k, v, chunk)
     cut = sk - 64  # planted faults: the last kv tile left out; the scale halved
     faults = (kernel(q, k[:, :cut].contiguous(), v[:, :cut].contiguous()), kernel(q * 0.5, k, v))
-    rel, fault_rel = hold_to_plain(f"{kernel.__name__} [{b},{sq},{sk},{h},64]", out, ref, faults)
+    rel, fault_rel = hold_to_plain(f"{kernel.__name__} [{b},{sq},{sk},{h},64] ({path})", out,
+                                   ref, faults)
     del faults
     err = (out.float() - ref.float()).abs().max().item()
     ms = cuda_ms(lambda: kernel(q, k, v), reps)
+    path_ms = {}
+    for other in fa.ATTENTION_PATHS:  # every design, held to the same check
+        run = lambda: fa._attention_call(kernel, lib_name, q, k, v, path=other)
+        other_out = run()
+        faults = (fa._attention_call(kernel, lib_name, q, k[:, :cut].contiguous(),
+                                     v[:, :cut].contiguous(), path=other),
+                  fa._attention_call(kernel, lib_name, q * 0.5, k, v, path=other))
+        hold_to_plain(f"{kernel.__name__} [{b},{sq},{sk},{h},64] ({other})", other_out, ref,
+                      faults)
+        del faults, other_out
+        path_ms[other] = cuda_ms(run, reps)
     plain_ms = cuda_ms(lambda: _chunked(plain, q, k, v, chunk), 2, warmup=1)
     tr = lambda t: t.transpose(1, 2)
     lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(tr(q), tr(k), tr(v)), reps)
     bms, by = attention_bound_ms(q, k, v)
-    print(f"[{label} B={b} Sq={sq} Sk={sk} H={h} D=64] row_rel_err {rel:.3e} "
+    print(f"[{label} B={b} Sq={sq} Sk={sk} H={h} D=64 ({path})] row_rel_err {rel:.3e} "
           f"(tol {KERNEL_TOL}, planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
-          f"bound {bms:.4f} ms ({by})", flush=True)
+          f"bound {bms:.4f} ms ({by}); designs "
+          f"{json.dumps({p_: round(t, 4) for p_, t in path_ms.items()})}", flush=True)
     if onepass:
         source, replaces = ("moca_tpu_torch/csrc/flash_onepass.cu",
                             "moca_tpu/ops/flash_attention.py:713 (_fa_onepass_kernel)")
@@ -228,15 +248,18 @@ def check_flash(b, sq, sk, h, gen, rows, reps=10, onepass=False):
                      source=source, replaces=replaces,
                      shape=(b, sq, sk, h, 64), max_abs_err=err, max_row_rel_err=rel,
                      fault_row_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bms, bound_by=by, library_ms=lib_ms))
+                     bound_ms=bms, bound_by=by, library_ms=lib_ms, path=path,
+                     path_ms=path_ms))
 
 
 def check_flash_adversarial(gen):
-    """K1 on the softmax hazards of tests/test_flash_attention.py:212-228:
-    finite output that matches the plain version."""
+    """K1 and K4 on the softmax hazards of tests/test_flash_attention.py:212-228,
+    on each of their designs: finite output that matches the plain version."""
     from moca_tpu_torch.ops import flash_attention as fa
 
     b, h, d = 2, 2, 64
+    kernels = ((fa.flash_attention, "flash", fa.attention_plain),
+               (fa.flash_attention_onepass, "onepass", fa.flash_attention_onepass_plain))
     for s, kind in itertools.product((256, 640), ("overflow", "underflow", "denom_overflow")):
         q, k, v = (_randn_bf16((b, s, h, d), gen) for _ in range(3))
         if kind == "overflow":
@@ -249,10 +272,15 @@ def check_flash_adversarial(gen):
         else:
             q.fill_(-40.0)
             k.fill_(40.0)
-        rel, _ = hold_to_plain(f"flash_attention adversarial {kind} S={s}",
-                               fa.flash_attention(q, k, v), fa.attention_plain(q, k, v))
-        print(f"[K1 adversarial {kind} S={s}] finite, row_rel_err {rel:.3e} "
-              f"(tol {KERNEL_TOL})", flush=True)
+        for kernel, lib_name, plain in kernels:
+            ref = plain(q, k, v)
+            rels = {path: hold_to_plain(f"{kernel.__name__} adversarial {kind} S={s} ({path})",
+                                        fa._attention_call(kernel, lib_name, q, k, v, path=path),
+                                        ref)[0]
+                    for path in fa.ATTENTION_PATHS}
+            print(f"[{kernel.__name__} adversarial {kind} S={s}] finite, row_rel_err "
+                  f"{json.dumps({p_: float(f'{r:.3e}') for p_, r in rels.items()})} "
+                  f"(tol {KERNEL_TOL})", flush=True)
 
 
 def check_packed(n, s, c, gen, rows, reps=20, d=64):

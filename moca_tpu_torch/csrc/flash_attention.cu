@@ -11,31 +11,30 @@
 // What bounds it on an H100: at S = 2560 the QK^T and PV products are 4*B*H*S^2*D
 // operations against 4*B*S*H*D*2 bytes, i.e. ~1280 operations per byte, far
 // above the card's ~295 bf16 operations per byte, so it is bound by tensor-core
-// work and, just behind it, by the S^2 exp2 evaluations on the SFU. At S = 160
-// the ratio is ~80, so it is bound by bytes.
+// work and, as tightly at d = 64, by the S^2 exp2 evaluations on the SFU. At
+// S = 160 and at kv = 154 it is bound by bytes.
 //
-// Design. One block of 4 warps owns one (batch, head, q tile); each warp owns
-// MT m16 row tiles (MT = 2 for long q at D = 64, else 1). A loop over 64-row kv
-// tiles takes the place of the TPU grid's sequential kv axis and its scratch
-// carry: K and V tiles are staged in shared memory by 16-byte cp.async copies,
-// double buffered so the next tile loads while the current one is computed.
-// QK^T and PV run on the tensor cores through mma.sync m16n8k16 (bf16 in, fp32
-// accumulate); the logits never leave registers. Every K/V fragment a warp
-// reads from shared memory feeds its MT row tiles, which halves the shared-
-// memory traffic per product at MT = 2 (one row tile per warp would need more
-// shared-memory bandwidth than the SM has to keep the tensor cores busy).
 // The softmax is the exact online max-shifted form in base 2: the running max
 // is taken on the raw fp32 logits and exp2(s*scale*log2(e) - m) is one FFMA and
 // one ex2.approx, with fp32 running max, denominator and output accumulator;
-// the output is written once, in the input type. Heads are read by stride
-// straight from [B, S, H, D]: no transposes. Ragged tails (S not a multiple of
-// the tile) are zero-filled in shared memory and masked with -inf.
+// the output is written once, in the input type.
+//
+// Two designs, chosen by shape in `plan` (moca_flash_attention_plan):
+//   * wgmma (flash_hopper.cuh): TMA loads, a producer warpgroup and two
+//     ping-ponged consumer warpgroups on wgmma, the softmax overlapped with
+//     the products; 128 q rows a CTA, kv tiles of 64 or 128 rows.
+//   * mma.sync (`flash_fwd` below): one block of 4 warps owns one (batch,
+//     head, q tile); each warp owns MT m16 row tiles (MT = 2 for long q at
+//     D = 64, else 1). K and V tiles of 64 rows are staged by 16-byte cp.async
+//     copies, double buffered; QK^T and PV run on mma.sync m16n8k16; ragged
+//     tails are zero-filled in shared memory and masked with -inf.
 //
 // The TPU's `nomax` and `guarded` softmax modes (flash_attention.py:64-90) are VPU
 // economies whose output equals this exact form wherever it is finite; they and
 // the guarded flag-and-rerun are not carried over. Neither is the TPU block
 // policy (`_choose_flash_blocks`, the VMEM caps): tiles here are sized for
 // Hopper's shared memory and registers.
+#include "flash_hopper.cuh"
 #include "mma.cuh"
 
 using namespace moca;
@@ -260,18 +259,63 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, int BN>
+__global__ void __launch_bounds__(flash::THREADS, 1)
+    flash_fwd_wgmma(const __grid_constant__ flash::Maps maps, bf16* __restrict__ o, int B, int Sq,
+                    int Sk, int H, float scale_log2) {
+  flash::attention_fwd<D, BN, false>(maps, o, B, Sq, Sk, H, scale_log2);
+}
+
+// Paths (ATTENTION_PATHS in ops/flash_attention.py): 0 mma.sync, 1 wgmma with
+// 64-row kv tiles, 2 wgmma with 128-row kv tiles. The choice follows the
+// designs' times on an H100 (PERF.md section 6): a q of under 3 tiles of
+// 128 rows over a short kv row (S = 160) is bound by bytes and wastes a third
+// or more of the wgmma design's rows, where mma.sync takes 64-row tiles; over
+// a long kv row (Sq = 128, Sk = 8192) the products win again. A short kv row
+// computes fewer masked keys in 64-row tiles; long rows run faster on
+// 128-row tiles.
+// D = 128 (no main-path shape) takes 64-row tiles only: its 128-row tiles
+// need more registers than a consumer has.
+int plan(int B, int Sq, int Sk, int H, int D) {
+  (void)B;
+  (void)H;
+  if (Sq < 3 * flash::ROWS && Sk <= 256) return 0;
+  return Sk <= 256 || D == 128 ? 1 : 2;
+}
+
+template <int D>
+int launch_wgmma(int path, const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                 int Sk, int H, float scale_log2, cudaStream_t s) {
+  if constexpr (D == 64) {
+    if (path == 2)
+      return flash::launch<64, 128>(flash_fwd_wgmma<64, 128>, q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+  }
+  return flash::launch<D, 64>(flash_fwd_wgmma<D, 64>, q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+}
+
 }  // namespace
 
+extern "C" int moca_flash_attention_plan(int B, int Sq, int Sk, int H, int D) {
+  return plan(B, Sq, Sk, H, D);
+}
+
+// path: as `plan` numbers them, or -1 for the plan's choice.
 extern "C" int moca_flash_attention(const void* q, const void* k, const void* v, void* o, int B,
-                                    int Sq, int Sk, int H, int D, float scale_log2,
+                                    int Sq, int Sk, int H, int D, float scale_log2, int path,
                                     void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Two row tiles per warp pay off once the q tile is mostly full (the
-  // 128-row tile wastes a third of its work at Sq = 160).
-  if (D == 64 && Sq >= 512) return launch<64, 2>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
-  if (D == 64) return launch<64, 1>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
-  if (D == 128) return launch<128, 1>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (path < 0) path = plan(B, Sq, Sk, H, D);
+  if (path == 0) {
+    // Two row tiles per warp pay off once the q tile is mostly full (the
+    // 128-row tile wastes a third of its work at Sq = 160).
+    if (D == 128) return launch<128, 1>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+    return Sq >= 512 ? launch<64, 2>(q, k, v, o, B, Sq, Sk, H, scale_log2, s)
+                     : launch<64, 1>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+  }
+  if (path > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return D == 128 ? launch_wgmma<128>(path, q, k, v, o, B, Sq, Sk, H, scale_log2, s)
+                  : launch_wgmma<64>(path, q, k, v, o, B, Sq, Sk, H, scale_log2, s);
 }
 
 extern "C" const char* moca_cuda_error_string(int err) {

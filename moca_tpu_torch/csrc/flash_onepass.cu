@@ -15,35 +15,35 @@
 // accumulated in fp32, divided by sum_row(p) (fp32) and rounded once.
 //
 // What bounds it on an H100: as K1 (csrc/flash_attention.cu), tensor-core work
-// at S = 2560 (~1280 operations per byte) and bytes at kv = 154. This design
-// does QK^T twice, so its operations are 1.5x K1's (6*B*H*Sq*Sk*D against
-// 4*B*H*Sq*Sk*D).
+// and the exp2 evaluations at S = 2560, bytes at kv = 154. Two sweeps over KV
+// do QK^T twice, 1.5x K1's operations (6*B*H*Sq*Sk*D against 4*B*H*Sq*Sk*D);
+// sweep 2 takes no rescale.
 //
-// Design: two sweeps over KV inside one block rather than the logits in
-// shared memory. The TPU kernel holds a [bq, Sk] fp32 logits tile in its
-// many-megabyte VMEM; here 16 rows x Sk = 2560 x 4 B is 160 KB, so a block
-// could hold the logits of one warp's rows and no more, one warp per SM, far
-// too little to feed the tensor cores, and the wrapper would have to refuse
-// longer rows. Sweep 1 streams K tiles and keeps each row's running max in
-// registers (no exponent is taken); sweep 2 streams K and V tiles, recomputes
-// QK^T, takes exp2(s - max) with the final max, and accumulates the row sum
-// and PV with no rescale. No cap on Sk. Otherwise as K1: one block of 4 warps
-// per (batch, head, q tile), each warp MT m16 row tiles, 64-row kv tiles double
-// buffered by 16-byte cp.async copies (one pipeline across both sweeps),
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate), P fed from the QK^T
-// accumulators as the A fragments of PV, V read with ldmatrix.trans, heads
-// read by stride from [B, S, H, D], ragged tails zero-filled and masked with
-// -inf. The q scale is applied to the q fragments in registers.
+// Two sweeps over KV inside one CTA rather than the logits on chip: the TPU
+// kernel holds a [bq, Sk] fp32 logits tile in its many-megabyte VMEM; here a
+// 64-row tile's logits at Sk = 2560 are 640 KB, more than an SM's shared
+// memory. A cluster design that held them in distributed shared memory (QK^T
+// once) ran 1.5-2.2x slower than two sweeps at every main-path shape on an
+// H100 (PERF.md section 6) and was removed. Sweep 1 streams K tiles and keeps
+// each row's max in registers (no exponent is taken); sweep 2 streams K and V
+// tiles, recomputes QK^T, takes exp2(s - max) with the final max, and
+// accumulates the row sum and PV with no rescale. No cap on Sk.
 //
-// Not yet redesigned for Hopper. A design that computes QK^T once (4*B*H*Sq*
-// Sk*D operations) was measured and dropped: a cluster of up to 8 CTAs held a
-// 64-row q tile's fp32 logits in its distributed shared memory (TMA, wgmma,
-// the row max and the partial PV results exchanged across the cluster). Each
-// CTA did little work for fixed costs that the cluster multiplied (set-up,
-// two exchanges, the reduction), and it ran 1.5-2.2x slower than these two
-// sweeps at every main-path shape on an H100 (PERF.md section 6). This kernel
-// already runs its 6*B*H*Sq*Sk*D operations at ~300 TFLOP/s there, so a
-// second sweep on wgmma can gain little; the next step is K1 on wgmma.
+// Two designs, chosen by shape in `plan` (moca_flash_onepass_plan):
+//   * wgmma (flash_hopper.cuh, ONEPASS): both sweeps on K1's Hopper pipeline,
+//     TMA loads, a producer warpgroup and two ping-ponged consumer
+//     warpgroups; the scaled q is rounded in shared memory before the first
+//     wgmma reads it. Sweep 1 is QK^T alone, a third of the products and no
+//     exponent, so K4 costs about 1.1x the new K1 at S = 2560 and runs in
+//     about 0.6x the mma.sync kernel's time there; at kv = 154 it is faster
+//     than that kernel for Sq >= 384 (PERF.md section 6).
+//   * mma.sync (`onepass_fwd` below): one block of 4 warps per (batch, head,
+//     q tile), each warp MT m16 row tiles, 64-row kv tiles double buffered by
+//     16-byte cp.async copies (one pipeline across both sweeps), mma.sync
+//     m16n8k16, P fed from the QK^T accumulators as the A fragments of PV, V
+//     read with ldmatrix.trans, ragged tails zero-filled and masked with -inf.
+//     The q scale is applied to the q fragments in registers.
+#include "flash_hopper.cuh"
 #include "mma.cuh"
 
 using namespace moca;
@@ -282,15 +282,63 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, int BN>
+__global__ void __launch_bounds__(flash::THREADS, 1)
+    onepass_fwd_wgmma(const __grid_constant__ flash::Maps maps, bf16* __restrict__ o, int B, int Sq,
+                      int Sk, int H, float scale_log2) {
+  flash::attention_fwd<D, BN, true>(maps, o, B, Sq, Sk, H, scale_log2);
+}
+
+// Paths (ATTENTION_PATHS in ops/flash_attention.py): 0 mma.sync, 1 wgmma with
+// 64-row kv tiles, 2 wgmma with 128-row kv tiles. The choice follows the
+// designs' times on an H100 (PERF.md section 6): a q of under 3 tiles of
+// 128 rows over a short kv row (S = 160) is bound by bytes and wastes a third
+// or more of the wgmma design's rows, where mma.sync takes 64-row tiles; over
+// a long kv row (Sq = 128, Sk = 8192) the products win again. A short kv row
+// computes fewer masked keys in 64-row tiles; long rows run faster on
+// 128-row tiles.
+// D = 128 (no main-path shape) takes 64-row tiles only: its 128-row tiles
+// need more registers than a consumer has.
+int plan(int B, int Sq, int Sk, int H, int D) {
+  (void)B;
+  (void)H;
+  if (Sq < 3 * flash::ROWS && Sk <= 256) return 0;
+  return Sk <= 256 || D == 128 ? 1 : 2;
+}
+
+template <int D>
+int launch_wgmma(int path, const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                 int Sk, int H, float scale_log2, cudaStream_t s) {
+  if constexpr (D == 64) {
+    if (path == 2)
+      return flash::launch<64, 128>(onepass_fwd_wgmma<64, 128>, q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+  }
+  return flash::launch<D, 64>(onepass_fwd_wgmma<D, 64>, q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+}
+
 }  // namespace
 
+extern "C" int moca_flash_onepass_plan(int B, int Sq, int Sk, int H, int D) {
+  return plan(B, Sq, Sk, H, D);
+}
+
+// path: as `plan` numbers them, or -1 for the plan's choice.
 extern "C" int moca_flash_onepass(const void* q, const void* k, const void* v, void* o, int B,
-                                  int Sq, int Sk, int H, int D, float scale_log2, void* stream) {
+                                  int Sq, int Sk, int H, int D, float scale_log2, int path,
+                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64 && Sq >= 512) return launch<64, 2>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
-  if (D == 64) return launch<64, 1>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
-  if (D == 128) return launch<128, 1>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (path < 0) path = plan(B, Sq, Sk, H, D);
+  if (path == 0) {
+    // Two row tiles per warp pay off once the q tile is mostly full (the
+    // 128-row tile wastes a third of its work at Sq = 160).
+    if (D == 128) return launch<128, 1>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+    return Sq >= 512 ? launch<64, 2>(q, k, v, o, B, Sq, Sk, H, scale_log2, s)
+                     : launch<64, 1>(q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+  }
+  if (path > 2) return static_cast<int>(cudaErrorInvalidValue);
+  return D == 128 ? launch_wgmma<128>(path, q, k, v, o, B, Sq, Sk, H, scale_log2, s)
+                  : launch_wgmma<64>(path, q, k, v, o, B, Sq, Sk, H, scale_log2, s);
 }
 
 extern "C" const char* moca_cuda_error_string(int err) {

@@ -17,24 +17,29 @@
 //   * wgmma: shared-memory descriptors for 128-byte-swizzled bf16 tiles whose
 //     rows are 128 bytes (64 values), 8-row swizzle atoms 1024 bytes apart:
 //     K-major (rows along M or N, the K values contiguous; advance 32 bytes a
-//     k16 step) and MN-major (rows along K, the N values contiguous; advance
-//     16 rows = 2048 bytes a k16 step). m64nNk16.f32.bf16.bf16 with A and B
-//     from shared memory (N = 64, 128, 192), or A from registers (N = 64),
-//     plus fence, commit_group, wait_group. The accumulator layout for thread
-//     i of the warpgroup, warp w = i / 32, g = lane / 4, t = lane % 4:
-//     d[4j + e] (e < 2) at row 16w + g, column 8j + 2t + e; d[4j + 2 + e] at
-//     row 16w + g + 8 (mma.cuh's C layout per n8 tile). A from registers
-//     takes mma.cuh's A fragment of rows 16w..16w+15.
+//     k16 step) and MN-major (rows along K, the N values contiguous, 64-value
+//     column chunks `chunk_bytes` apart; advance 16 rows = 2048 bytes a k16
+//     step). m64nNk16.f32.bf16.bf16 with A and B from shared memory (N = 64,
+//     128, 192), or A from registers (N = 64, 128), plus fence,
+//     commit_group, wait_group and a register fence that keeps the compiler
+//     from moving reads of an accumulator above the wait that completes it.
+//     The accumulator layout for thread i of the warpgroup, warp w = i / 32,
+//     g = lane / 4, t = lane % 4: d[4j + e] (e < 2) at row 16w + g, column
+//     8j + 2t + e; d[4j + 2 + e] at row 16w + g + 8 (mma.cuh's C layout per
+//     n8 tile). A from registers takes mma.cuh's A fragment of rows
+//     16w..16w+15, so the bf16 pairs of an accumulator, (d[8k + 2r],
+//     d[8k + 2r + 1]) for r = 0..3, are the A fragment of k16 step k.
 //   * clusters: launch on clusters, %cluster_ctarank, barrier.cluster
 //     arrive/wait, `mapa` for arrivals on another CTA's mbarrier, and a
 //     device-scope fence.
-//   * a proxy fence (generic writes to device memory read back by TMA) and
-//     named barriers.
+//   * proxy fences (generic writes to device memory read back by TMA, and to
+//     shared memory read by wgmma), named barriers (sync and arrive) and
+//     `setmaxnreg`, which moves registers between warpgroups.
 //
-// K3 (fused_qkv_attention.cu) uses all but the 3D load, the MN-major
-// descriptor and wgmma with A from registers: no kernel runs those yet; they
-// are for K1's redesign on wgmma (q, k, v read by TMA from [B, S, H*D], V as
-// the MN-major B operand, P from registers).
+// K3 (fused_qkv_attention.cu) uses the 2D loads, clusters and wgmma with both
+// operands in shared memory; K1 and K4 (flash_hopper.cuh) the 3D loads, the
+// MN-major descriptor, wgmma with A from registers, named-barrier ping-pong
+// and setmaxnreg.
 #pragma once
 
 #include <cuda.h>
@@ -260,9 +265,33 @@ __device__ __forceinline__ void fence_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma operands read from shared memory); then a barrier over the writers.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Named barrier over `threads` threads (id 0 is __syncthreads').
 __device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive on named barrier `id` (of `threads` threads) without waiting.
+__device__ __forceinline__ void named_arrive(uint32_t id, uint32_t threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Registers a thread of this warpgroup may hold from here on (every warp of
+// the warpgroup executes it). Only where warp roles split once and never
+// rejoin; otherwise ptxas ignores it.
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 // ---------------------------------------------------------------------------
@@ -277,10 +306,11 @@ __device__ __forceinline__ uint64_t desc_kmajor(const void* tile) {
          (1ull << 62);
 }
 
-// MN-major operand tile (rows along K, 64 N values each, swizzled).
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile) {
-  return desc_encode(saddr(tile)) | (desc_encode(8192) << 16) | (desc_encode(1024) << 32) |
-         (1ull << 62);
+// MN-major operand tile (rows along K, 64 N values each, swizzled); N > 64
+// takes further 64-value column chunks `chunk_bytes` apart.
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, uint32_t chunk_bytes) {
+  return desc_encode(saddr(tile)) | (desc_encode(chunk_bytes) << 16) |
+         (desc_encode(1024) << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -294,6 +324,14 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// After a wait: the compiler may not read (or before an issue, write) these
+// registers across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // d (+)= A B on m64nNk16 (N = 64, 128 or 192: N / 2 fp32 accumulators a
@@ -379,24 +417,67 @@ __device__ __forceinline__ void wgmma_ss<192>(float* d, uint64_t desc_a, uint64_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (+)= A B on m64n64k16, A from registers (mma.cuh's A fragment per warp),
-// B from shared memory, MN-major (TRANS_B = 1) or K-major (0).
+// d (+)= A B on m64nNk16 (N = 64 or 128), A from registers (mma.cuh's A
+// fragment per warp, 4 registers), B from shared memory, MN-major
+// (TRANS_B = 1) or K-major (0).
+template <int N, int TRANS_B>
+struct WgmmaRS;
+
 template <int TRANS_B>
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+struct WgmmaRS<64, TRANS_B> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(TRANS_B));
+  }
+};
+
+template <int TRANS_B>
+struct WgmmaRS<128, TRANS_B> {
+  static __device__ __forceinline__ void run(float* d, const uint32_t* a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+        "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        :
+          "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+          "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+          "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+          "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+          "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+          "n"(TRANS_B));
+  }
+};
+
+template <int N, int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b,
                                          int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  WgmmaRS<N, TRANS_B>::run(d, a, desc_b, scale_d);
 }
 
 }  // namespace hopper

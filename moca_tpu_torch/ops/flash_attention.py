@@ -5,8 +5,11 @@ by four CUDA kernels here (sources in `moca_tpu_torch/csrc/`, each with a note
 on what it replaces, what bounds it and how it is designed):
 
   * K1 `flash_attention(q, k, v)` — attention of q [B, Sq, H, D] over
-    k, v [B, Sk, H, D], D in {64, 128}, online softmax; serves `_fa_kernel`
-    and `_fa_small_kernel` (csrc/flash_attention.cu);
+    k, v [B, Sk, H, D], D in {64, 128}, online softmax on wgmma with TMA
+    loads, a producer warpgroup and two ping-ponged consumer warpgroups
+    (csrc/flash_hopper.cuh), or on mma.sync at the shapes where that is
+    faster; serves `_fa_kernel` and `_fa_small_kernel`
+    (csrc/flash_attention.cu);
   * K2 `packed_attention(q, k, v, heads)` — [N, S, H*d] tiny-S attention on
     packed heads, S in {8, 16, 24, 32}, d a multiple of 8 up to 128; serves
     `_packed_slice_kernel`, `_packed_lane_kernel` and `_packed_tiny_kernel`
@@ -19,11 +22,14 @@ on what it replaces, what bounds it and how it is designed):
     `_fused_qkv_kernel` (csrc/fused_qkv_attention.cu);
   * K4 `flash_attention_onepass(q, k, v)` — K1's function with the row max
     taken before any exponent and nothing rescaled, D in {64, 128}: two
-    sweeps over KV; serves `_fa_onepass_kernel` (csrc/flash_onepass.cu).
+    sweeps over KV on K1's wgmma pipeline (or on mma.sync where that is
+    faster); serves `_fa_onepass_kernel` (csrc/flash_onepass.cu).
 
-The Hopper pieces K3 uses (mbarriers, TMA, wgmma, clusters) are in
-csrc/hopper.cuh; its tensor maps are encoded inside the library's C entry
-point through the runtime's driver entry point, so no library links -lcuda.
+The Hopper pieces (mbarriers, TMA, wgmma, named barriers, setmaxnreg,
+clusters) are in csrc/hopper.cuh, used by K1, K3 and K4; the tensor maps are
+encoded inside each library's C entry point through the runtime's driver
+entry point, so no library links -lcuda. K1 and K4 choose their design and kv
+tile by shape inside the library (`attention_path` names the choice).
 
 Each wrapper runs its plain PyTorch version only when handed CPU tensors. On
 CUDA tensors it launches the kernel or raises — there is no fallback — and
@@ -51,7 +57,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = {"flash": "flash_attention.cu", "packed": "packed_attention.cu",
             "fused": "fused_qkv_attention.cu", "onepass": "flash_onepass.cu"}
-_HEADERS = ("mma.cuh", "hopper.cuh")
+_HEADERS = ("mma.cuh", "hopper.cuh", "flash_hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LOG2E = 1.4426950408889634
@@ -174,12 +180,16 @@ def build_kernels() -> dict:
 
 _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ENTRY = {  # library -> (C entry point, its argtypes)
-    "flash": ("moca_flash_attention", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p]),
+    "flash": ("moca_flash_attention", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
     "packed": ("moca_packed_attention", [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
     "fused": ("moca_fused_qkv_attention",
               [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
-    "onepass": ("moca_flash_onepass", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _p]),
+    "onepass": ("moca_flash_onepass", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
 }
+# K1's and K4's designs, as their libraries number them (`plan` in the .cu):
+# mma.sync, then wgmma (persistent CTAs) with kv tiles of 64 and of 128 rows
+# (64 at D = 128).
+ATTENTION_PATHS = ("mma_sync", "wgmma_kv64", "wgmma_kv128")
 
 
 def _entry(name: str):
@@ -223,9 +233,20 @@ def _raise_on(lib, err: int, what: str):
 # Wrappers
 # ---------------------------------------------------------------------------
 
-def _attention_call(wrapper, name: str, q, k, v):
+def attention_path(name: str, b: int, sq: int, sk: int, h: int, d: int) -> str:
+    """The design K1 (`name` "flash") or K4 ("onepass") takes at q [b, sq, h, d]
+    over k, v [b, sk, h, d], one of ATTENTION_PATHS: the library's own plan."""
+    lib, _ = _entry(name)
+    fn = getattr(lib, _ENTRY[name][0] + "_plan")
+    fn.argtypes, fn.restype = [_i] * 5, _i
+    return ATTENTION_PATHS[fn(b, sq, sk, h, d)]
+
+
+def _attention_call(wrapper, name: str, q, k, v, path: str | None = None):
     """Launch K1 or K4 (library `name`) on q [B, Sq, H, D] and k, v
-    [B, Sk, H, D]: the two take the same arguments and shapes."""
+    [B, Sk, H, D]: the two take the same arguments and shapes. `path` (one of
+    ATTENTION_PATHS) overrides the library's choice of design, for timing
+    the designs against each other."""
     what = wrapper.__name__
     _check_inputs(q, k, v, what=what)
     b, sq, h, d = q.shape
@@ -238,7 +259,8 @@ def _attention_call(wrapper, name: str, q, k, v):
     lib, fn = _entry(name)
     o = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, h, d,
-             d ** -0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+             d ** -0.5 * _LOG2E, -1 if path is None else ATTENTION_PATHS.index(path),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, what)
     _count(wrapper, (b, sq, sk, h, d))
     return o

@@ -12,7 +12,7 @@ the probabilities and the output to bf16 at different points, a few 2^-8
 relative. The same limit is held in chip_smoke.py, and each case also checks
 that planted faults exceed it: for K1, K2 and K4 the last kv tile or key left
 out and the softmax scale halved; for K3 Wq halved and the last head's Wv
-rows zeroed.
+rows zeroed. K1 and K4 are held to it on each of their designs.
 """
 
 import pytest
@@ -167,6 +167,81 @@ def test_cuda_flash_attention_onepass_matches_plain(b, sq, sk, h, d):
     faults = (tfa.flash_attention_onepass(q, k[:, :cut].contiguous(), v[:, :cut].contiguous()),
               tfa.flash_attention_onepass(q * 0.5, k, v))
     _check(out, tfa.flash_attention_onepass_plain(q, k, v), faults, d)
+
+
+ATTENTION_SHAPES = [
+    (2, 640, 154, 2, 64),     # Sk = 154: a partial last kv tile (of 64 and of 128 rows)
+    (2, 256, 128, 2, 64),     # Sk = 128: exactly one 128-row kv tile
+    (2, 160, 160, 4, 64),     # Sq = 160: a partial q tile, one warpgroup's rows wholly past Sq
+    (2, 200, 200, 2, 64),     # Sq = 200: both warpgroups' q tiles partial
+    (1, 2560, 2560, 2, 64),   # S = 2560 at a small B
+    (2, 200, 300, 2, 128),    # D = 128
+    (1, 640, 640, 2, 128),    # D = 128, whole tiles
+    (8, 640, 640, 10, 64),    # 400 work tiles: several a persistent CTA
+    (4, 2560, 154, 5, 64),    # 400 work tiles at a ragged kv row
+]
+
+
+def _attention(kernel, path, q, k, v):
+    """K1 or K4 on the design `path` (None: the library's choice)."""
+    wrapper = tfa.flash_attention_onepass if kernel == "onepass" else tfa.flash_attention
+    return tfa._attention_call(wrapper, kernel, q, k, v, path=path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash", "onepass"])
+@pytest.mark.parametrize("b,sq,sk,h,d", ATTENTION_SHAPES)
+def test_cuda_attention_designs_match_plain(kernel, b, sq, sk, h, d):
+    """K1 and K4 on every design (mma.sync, wgmma with 64- and 128-row kv
+    tiles, and the library's choice) against their plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b, sk, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    plain = tfa.flash_attention_onepass_plain if kernel == "onepass" else tfa.attention_plain
+    ref = plain(q, k, v)
+    cut = sk - 64
+    for path in tfa.ATTENTION_PATHS + (None,):
+        out = _attention(kernel, path, q, k, v)
+        faults = (_attention(kernel, path, q, k[:, :cut].contiguous(), v[:, :cut].contiguous()),
+                  _attention(kernel, path, q * 0.5, k, v))
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), path
+        assert max_row_rel_err(out, ref, d) <= TOL, path
+        for fault in faults:
+            assert max_row_rel_err(fault, ref, d) > TOL, path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash", "onepass"])
+@pytest.mark.parametrize("kind", ["overflow", "underflow", "denom_overflow"])
+def test_cuda_attention_designs_on_softmax_hazards(kernel, kind):
+    """The softmax hazards of tests/test_flash_attention.py:212-228 on every
+    design: finite output that matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((2, 320, 2, 64), generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    if kind == "overflow":
+        q[0] = q[0].abs() + 40.0
+        k[0] = k[0].abs() + 40.0
+    elif kind == "denom_overflow":
+        q.fill_(3.25)
+        k.fill_(3.25)
+        v = v * 1e-5
+    else:
+        q.fill_(-40.0)
+        k.fill_(40.0)
+    plain = tfa.flash_attention_onepass_plain if kernel == "onepass" else tfa.attention_plain
+    ref = plain(q, k, v)
+    for path in tfa.ATTENTION_PATHS:
+        out = _attention(kernel, path, q, k, v)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), path
+        assert max_row_rel_err(out, ref) <= TOL, path
 
 
 @pytest.mark.cuda

@@ -200,3 +200,22 @@ def test_kernel_shape_choices_at_the_main_path_and_their_limits():
     assert tfa.fused_qkv_head_split(3, 16, 1280) == 4     # below one tile
     assert tfa.fused_qkv_head_split(8, 24, 1280) == 4     # S = 24: 48-token tiles, 4 of them
     assert tfa.fused_qkv_head_split(80, 16, 640) == 1     # only at C = 1280
+
+
+def test_every_included_header_is_in_the_build_digest():
+    """Each `#include "..."` of a kernel source, and of the headers those
+    include, is listed in `_HEADERS`: the library's file name carries a
+    digest of only those files, so an unlisted header could leave a stale
+    library loaded after an edit."""
+    import re
+
+    seen, todo = set(), list(tfa._SOURCES.values())
+    while todo:
+        name = todo.pop()
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
+                              (tfa._CSRC / name).read_text(), re.M):
+            if inc not in seen:
+                seen.add(inc)
+                todo.append(inc)
+    assert seen, "no kernel source includes a header of the package"
+    assert seen <= set(tfa._HEADERS), sorted(seen - set(tfa._HEADERS))
