@@ -33,9 +33,23 @@ Phases, each failing loudly (non-zero exit, no result line):
      d=32 U-Net must have been held to its plain version in phase 2;
   5. time one FIFO U-Net forward with and without the switches, break each
      one's device time down by kernel category and read the device's idle
-     share, from one torch.profiler trace each, and compare the two outputs.
-Prints a JSON line of kernel measurements, then as the last line
-{"ok": true, "device": {...}}.
+     share, from one torch.profiler trace each, and compare the two outputs;
+  6. DAVIS mode on the same model, as shipped: 72 frames [72, 320, 512, 3]
+     in [-1, 1] and 72 masks (a moving 20 x 32 rectangle at 40 x 64) made
+     from the seed with numpy, encoded on the card with `encode_frames`
+     (one frame's moments, bf16 on the card, held to the fp32 encoder on
+     the CPU), then MoCAVideoPipeline with the encoded latents, the masks
+     and the frames as tail anchors;
+  7. open vocab on the same model, as shipped: the host seconds until one
+     FIFO iteration's launch returns beside its device seconds; then prompt
+     mode with a CallbackMaskProvider whose detector thresholds the frame
+     and sleeps 0.2 s an iteration (spread over the iteration's low-t
+     frames), with `seg_async` and a snapshot every 16 iterations; its
+     mask_provider and fifo_iteration stage seconds beside phase 4's, to
+     show whether the provider's time hides under the U-Net.
+Phases 4, 6 and 7 set every kernel's launch count to 0 just before their
+run and read it just after. Prints a JSON line of kernel measurements, then
+as the last line {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [new_video_length (default 4)]
 """
@@ -62,6 +76,8 @@ H100_BYTES_PER_S = 3.35e12
 # through the kernel's inputs to show that it fails them.
 KERNEL_TOL = 2e-2
 UNET_REL_TOL = 5e-2  # bf16 GPU forward vs fp32 CPU forward, relative to max |ref|
+SEED = 0
+SEG_SLEEP_S = 0.2  # the stand-in detector's time per FIFO iteration
 # The switched full-width forward against the default one on the same input,
 # relative to max |default|: both are bf16 forwards of the same function whose
 # attention rounds at different points (K3 adds the bias after rounding, K4
@@ -553,25 +569,206 @@ def phase_main_path(new_video_length: int, num_partitions: int):
             frames = pipe("a cat surfing", seed=321, cond_image=cond, conditioned_prompt="a dog",
                           gamma=0.5, height=320, width=512, masks=masks)
             total = time.perf_counter() - t0
-            shapes[run] = {fn.__name__: dict(fn.launches) for fn in fa.KERNELS}
-        counts = {name: sum(by_shape.values()) for name, by_shape in shapes[run].items()}
-
+            shapes[run] = _launches(f"main {run}", expect)
         iters = new_video_length + pipe.num_inference_steps - f
-        finite = all(np.isfinite(x).all() for x in frames)
-        if len(frames) != iters or frames[0].shape != (320, 512, 3) or not finite:
-            fail(f"main path ({run}): {len(frames)} frames (want {iters}), shape "
-                 f"{frames[0].shape}, finite={finite}")
-        for name in expect:
-            if counts[name] <= 0:
-                fail(f"main path ({run}) launched {name} no time")
+        _check_frames(f"main path ({run})", frames, iters)
         steady = pipe.timings["fifo_iteration"] + pipe.timings["decode"]
         print(f"[main {run}] {len(frames)} frames {frames[0].shape}, all finite; total "
               f"{total:.2f} s, {total / len(frames):.3f} s/frame incl. base sample; FIFO+decode "
               f"{steady / iters:.3f} s/frame; stages "
               f"{json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-        print(f"[main {run}] launches {json.dumps(counts)}", flush=True)
     return shapes, model
+
+
+def _check_frames(label, frames, iters):
+    import numpy as np
+
+    finite = all(np.isfinite(x).all() for x in frames)
+    if len(frames) != iters or frames[0].shape != (320, 512, 3) or not finite:
+        fail(f"{label}: {len(frames)} frames (want {iters}), shape {frames[0].shape}, "
+             f"finite={finite}")
+
+
+def _launches(label, expect):
+    """{kernel: {shape: n}} since the last reset; fails unless every kernel
+    in `expect` launched."""
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    launched = {fn.__name__: dict(fn.launches) for fn in fa.KERNELS}
+    counts = {name: sum(by_shape.values()) for name, by_shape in launched.items()}
+    for name in expect:
+        if counts[name] <= 0:
+            fail(f"{label} launched {name} no time")
+    print(f"[{label}] launches {json.dumps(counts)}", flush=True)
+    return launched
+
+
+def davis_inputs(n=72, hw=(40, 64)):
+    """n frames [n, 8h, 8w, 3] uniform in [-1, 1], n masks [n, h, w] (a
+    20 x 32 rectangle moving one latent pixel a frame) and a concept image
+    [h, w, 4], from SEED."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    h, w = hw
+    frames = rng.uniform(-1.0, 1.0, (n, 8 * h, 8 * w, 3)).astype(np.float32)
+    masks = np.zeros((n, h, w), np.float32)
+    for t in range(n):
+        x0 = t % (w - 32)
+        masks[t, 10:30, x0:x0 + 32] = 1.0
+    cond = rng.uniform(0.0, 1.0, (h, w, 4)).astype(np.float32)
+    return frames, masks, cond
+
+
+def phase_davis(model, new_video_length: int, num_partitions: int):
+    """DAVIS mode at full width. Returns {kernel: {shape: launches}}."""
+    import copy
+
+    import torch
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
+    from moca_tpu_torch.sampling.ddim import GeneratorNormal
+
+    frames, masks, cond = davis_inputs()
+    torch.cuda.reset_peak_memory_stats()
+    normal = GeneratorNormal(SEED, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clean = model.encode_frames(frames[None], normal)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    enc_peak = torch.cuda.max_memory_allocated() / 2**30
+    if clean.shape != (1, 72, 40, 64, 4) or not torch.isfinite(clean).all():
+        fail(f"DAVIS encode: shape {tuple(clean.shape)}, "
+             f"finite={bool(torch.isfinite(clean).all())}")
+    # one frame's moments: the bf16 encoder on the card against fp32 on the CPU
+    cpu_vae = copy.deepcopy(model.vae).to("cpu", torch.float32)
+    x = torch.from_numpy(frames[-1:])
+    with torch.inference_mode():
+        ref = cpu_vae.encode_moments(x)
+        out = model.vae.encode_moments(x.cuda())
+    del cpu_vae
+    errs = {}
+    for name, o, r in zip(("mean", "logvar"), out, ref):
+        errs[name] = ((o.float().cpu() - r).abs().max() / r.abs().max()).item()
+        if not math.isfinite(errs[name]) or errs[name] > UNET_REL_TOL:
+            fail(f"DAVIS encoder {name}: bf16 GPU vs fp32 CPU relative max err {errs[name]} "
+                 f"> {UNET_REL_TOL}")
+    print(f"[davis] encoded 72 frames [72, 320, 512, 3] on the card in {encode_s:.2f} s "
+          f"(peak memory {enc_peak:.1f} GiB); frame 71's moments, bf16 GPU vs fp32 CPU: "
+          f"relative max err mean {errs['mean']:.3e}, logvar {errs['logvar']:.3e} "
+          f"(tol {UNET_REL_TOL})", flush=True)
+
+    pipe = MoCAVideoPipeline(model, HashTokenizer(), video_length=16,
+                             num_partitions=num_partitions,
+                             new_video_length=new_video_length, guidance_scale=12.0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = pipe("object bear cat.", normal=normal, cond_image=cond, gamma=0.5, height=320,
+                 width=512, clean_latents=clean, masks=masks, davis_frames=frames)
+    total = time.perf_counter() - t0
+    launched = _launches("davis", ("flash_attention", "packed_attention"))
+    iters = new_video_length + pipe.num_inference_steps - 16
+    _check_frames("DAVIS mode", video, iters)
+    steady = (pipe.timings["fifo_iteration"] + pipe.timings["decode"]) / iters
+    print(f"[davis] {len(video)} frames {video[0].shape}, all finite; total {total:.2f} s; "
+          f"steady (FIFO+decode) {steady:.3f} s/frame; stages "
+          f"{json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    return launched
+
+
+def launch_vs_device(pipe):
+    """(host seconds until one FIFO iteration's launch returns, its device
+    seconds) for the as-shipped prompt call: the host has time to spare for
+    a provider only if the launch returns early."""
+    import torch
+    from moca_tpu_torch.sampling.ddim import GeneratorNormal
+    from moca_tpu_torch.sampling.fifo import prepare_queue
+
+    normal = GeneratorNormal(SEED, "cuda")
+    with torch.inference_mode():
+        ctx = torch.cat([pipe.base.encode_prompts([p]) for p in ("a cat surfing", "a dog")], 1)
+        uc = torch.cat([pipe.base.uncond_context(1)] * 2, 1)
+        queue = prepare_queue(pipe.sch, pipe.plan, torch.zeros((1, 16, 40, 64, 4), device="cuda"),
+                              normal)
+        for i in range(2):  # the second is timed
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            queue, _, _ = pipe._fifo_iteration(queue, ctx, uc, None, None, False, 0.5, normal, i)
+            host_s = time.perf_counter() - t0
+            end.record()
+            torch.cuda.synchronize()
+    return host_s, start.elapsed_time(end) / 1e3
+
+
+def phase_open_vocab(model, new_video_length: int, num_partitions: int):
+    """Open vocab at full width with a stand-in detector, after the same
+    call without a provider, whose steady s/frame it is held against.
+    Returns {kernel: {shape: launches}} of the run with the provider."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from moca_tpu_torch.io.segmentation import CallbackMaskProvider
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
+
+    pipe = MoCAVideoPipeline(model, HashTokenizer(), video_length=16,
+                             num_partitions=num_partitions,
+                             new_video_length=new_video_length, guidance_scale=12.0,
+                             checkpoint_every=16, seg_async=True)
+    per_frame = SEG_SLEEP_S / pipe._num_low_t_slots()
+    calls = []
+
+    def detect(frame, target):  # threshold, then the detector's latency
+        calls.append(1)
+        mask = (frame[:, :, 0] > 127).astype(np.float32)
+        time.sleep(per_frame)
+        return mask if mask.any() else None
+
+    host_s, device_s = launch_vs_device(pipe)
+    print(f"[open_vocab] one FIFO iteration's launch returns to the host after {host_s:.3f} s "
+          f"of its {device_s:.3f} s on the device", flush=True)
+    latents_dir = os.path.join("build", "smoke_open_vocab")
+    shutil.rmtree(latents_dir, ignore_errors=True)
+    cond = np.full((40, 64, 4), 0.2, np.float32)
+    call = dict(seed=SEED, cond_image=cond, conditioned_prompt="a dog", gamma=0.5, height=320,
+                width=512, latents_dir=latents_dir)
+    iters = new_video_length + pipe.num_inference_steps - 16
+    # the same call without a provider (it writes the base-latent cache the next one reads)
+    _check_frames("open-vocab baseline", pipe("a cat surfing", **call), iters)
+    baseline = (pipe.timings["fifo_iteration"] + pipe.timings["decode"]) / iters
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    video = pipe("a cat surfing", **call, mask_provider=CallbackMaskProvider(detect),
+                 target="cat")
+    total = time.perf_counter() - t0
+    shutil.rmtree(latents_dir, ignore_errors=True)
+    launched = _launches("open_vocab", ("flash_attention", "packed_attention"))
+    _check_frames("open-vocab mode", video, iters)
+    if len(calls) != iters * pipe._num_low_t_slots():
+        fail(f"open vocab: {len(calls)} detector calls, want {iters * pipe._num_low_t_slots()}")
+    t = pipe.timings
+    steady = (t["fifo_iteration"] + t["decode"]) / iters
+    print(f"[open_vocab] {len(video)} frames, all finite; {len(calls)} detector calls "
+          f"({pipe._num_low_t_slots()} low-t slots an iteration, {SEG_SLEEP_S} s an iteration); "
+          f"total {total:.2f} s; mask_provider {t['mask_provider']:.3f} s "
+          f"({t['mask_provider'] / iters:.3f} s/iteration, the provider's own time on its "
+          f"worker thread), fifo_iteration {t['fifo_iteration']:.3f} s, decode "
+          f"{t['decode']:.3f} s; steady (FIFO+decode) {steady:.3f} s/frame against "
+          f"{baseline:.3f} in the same call without a provider: "
+          f"{steady - baseline:+.3f} s/frame exposed; stages "
+          f"{json.dumps({k: round(v, 3) for k, v in t.items()})}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    return launched
 
 
 _CATEGORIES = (  # kernel-name substrings -> category, first match wins
@@ -680,6 +877,8 @@ def main(argv):
     shapes, model = phase_main_path(new_video_length, num_partitions)
     shapes["unet_d32"] = unet_d32
     phase_profile(model, rows_fifo, ctx_len=154)
+    shapes["davis"] = phase_davis(model, new_video_length, num_partitions)
+    shapes["open_vocab"] = phase_open_vocab(model, new_video_length, num_partitions)
 
     for run, by_kernel in shapes.items():
         for name, by_shape in by_kernel.items():

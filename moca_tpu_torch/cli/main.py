@@ -1,0 +1,231 @@
+"""MoCA-Video CLI on the port; the flags are the reference's videocrafter_main.py's.
+
+Port of moca_tpu/cli/main.py: the same flags and defaults, the same output
+layout and the same tail slices, run by moca_tpu_torch on the GPU.
+
+Prompt mode:
+    python -m moca_tpu_torch.cli.main --ckpt_path model.ckpt \
+        --config configs/inference_t2v_512_v2.0.yaml \
+        --prompt_file prompts/prompts.csv --prompt_index 0
+
+DAVIS mode:
+    python -m moca_tpu_torch.cli.main --use_davis --video_name blackswan ...
+
+Noise: --seed seeds the port's generator (sampling/ddim.py GeneratorNormal);
+prompt row idx draws from a generator seeded with seed + idx. `--mesh`
+(multi-GPU) is not ported yet.
+
+Ref: videocrafter_main.py:235-276 (argparse), :66-232 (main).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+from moca_tpu_torch import resolve_device
+from moca_tpu_torch.config import load_model_config
+from moca_tpu_torch.io.checkpoint import load_checkpoint
+from moca_tpu_torch.io.davis import get_davis_prompt, load_davis_data
+from moca_tpu_torch.io.prompts import load_prompts
+from moca_tpu_torch.io.video import load_conditioning_image, save_video, tensor_to_uint8
+from moca_tpu_torch.models.latent_diffusion import LatentDiffusion
+from moca_tpu_torch.models.tokenizer import load_tokenizer
+from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
+from moca_tpu_torch.sampling.ddim import GeneratorNormal
+from moca_tpu_torch.sampling.moca import MoCAConfig
+from moca_tpu_torch.utils.logging import get_logger
+from moca_tpu_torch.utils.visualization import VisualizationSink
+
+log = get_logger("moca_tpu_torch.cli")
+
+DAVIS_FRAMES = 72  # frames read from a DAVIS clip (moca_tpu/cli/main.py:185)
+PRECISIONS = {"bf16": torch.bfloat16, "fp32": torch.float32}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="MoCA-Video on an NVIDIA GPU")
+    # the reference's flags (videocrafter_main.py:236-269), defaults kept
+    p.add_argument("--ckpt_path", type=str,
+                   default="videocrafter_models/base_512_v2/model.ckpt")
+    p.add_argument("--config", type=str, default="configs/inference_t2v_512_v2.0.yaml")
+    p.add_argument("--seed", type=int, default=321)
+    p.add_argument("--video_length", type=int, default=16, help="f in paper")
+    p.add_argument("--num_partitions", "-n", type=int, default=4)
+    p.add_argument("--num_inference_steps", type=int, default=16, help="forced to f*n")
+    p.add_argument("--prompt_file", "-p", type=str, default="prompts/prompts.csv")
+    p.add_argument("--new_video_length", "-l", type=int, default=100)
+    p.add_argument("--num_processes", type=int, default=1)
+    p.add_argument("--rank", type=int, default=0)
+    p.add_argument("--height", type=int, default=320)
+    p.add_argument("--width", type=int, default=512)
+    p.add_argument("--save_frames", action="store_true", default=True)
+    # The reference declares these three store_true with default=True, so
+    # they cannot be turned off (videocrafter_main.py:249-252); negations added.
+    p.add_argument("--no_save_frames", dest="save_frames", action="store_false")
+    p.add_argument("--no_use_mp4", dest="use_mp4", action="store_false",
+                   help="write .gif instead of .mp4")
+    p.add_argument("--no_lookahead_denoising", dest="lookahead_denoising",
+                   action="store_false")
+    p.add_argument("--fps", type=int, default=10)
+    p.add_argument("--unconditional_guidance_scale", type=float, default=12.0)
+    p.add_argument("--lookahead_denoising", "-ld", action="store_true", default=True)
+    p.add_argument("--eta", "-e", type=float, default=1.0)
+    p.add_argument("--output_dir", type=str, default=None)
+    p.add_argument("--use_mp4", action="store_true", default=True)
+    p.add_argument("--output_fps", type=int, default=10)
+    p.add_argument("--prompt_index", type=int, default=0)
+    p.add_argument("--use_self_attention", type=bool, default=False)
+    p.add_argument("--use_davis", action="store_true", default=False)
+    p.add_argument("--davis_root", type=str, default="DAVIS")
+    p.add_argument("--video_name", type=str, default=None)
+    p.add_argument("--frame_stride", type=int, default=1)
+    p.add_argument("--gamma", type=float, default=0.5)
+    p.add_argument("--sampling_strategy", type=str, default="uniform",
+                   choices=["first", "random", "uniform"])
+    p.add_argument("--conditioned_image_path", type=str, default="assets/cats.png")
+    # additions of the JAX package, same meaning here
+    p.add_argument("--precision", type=str, default="bf16", choices=sorted(PRECISIONS),
+                   help="parameter type of the three towers")
+    p.add_argument("--bpe_path", type=str, default=None,
+                   help="CLIP BPE vocab (or MOCA_TPU_BPE_PATH)")
+    p.add_argument("--inject_into_queue", action="store_true", default=False,
+                   help="let concept injection reach the FIFO queue (the reference computes "
+                        "x_prev before injection)")
+    p.add_argument("--multiprompts", nargs="+", default=None,
+                   help="multi-scene stream: N prompts followed by ONE comma-separated list "
+                        "of N frame counts (fifo_ddim_sampling_multiprompts, funcs.py:375-381)")
+    p.add_argument("--save_visualizations", action="store_true", default=False,
+                   help="dump the reference's per-step pred_x0/mask/cond PNGs "
+                        "(ddim.py:611-641, 849-899)")
+    p.add_argument("--tail_mode", type=str, default="freeinit", choices=["freeinit", "plain"],
+                   help="queue-tail refill on shift: freeinit = LPF anchor+noise mix "
+                        "(funcs.py:86-99), plain = fresh noise (funcs_mp.py:39-46)")
+    p.add_argument("--mesh", type=str, default=None, metavar="DP,FIFO",
+                   help="multi-device sharding; not ported to GPUs yet")
+    p.add_argument("--checkpoint_every", type=int, default=0,
+                   help="snapshot the FIFO state every N iterations; a killed run resumes "
+                        "from the last snapshot")
+    return p
+
+
+def load_pipeline(args, device=None) -> MoCAVideoPipeline:
+    """The model from --config and --ckpt_path on `device` (the GPU unless
+    the caller names one), in --precision, behind a MoCAVideoPipeline."""
+    cfg = load_model_config(args.config)
+    if cfg.is_i2v or cfg.diffusion.conditioning_key != "crossattn":
+        raise NotImplementedError("the port runs the text-to-video crossattn model only")
+    if cfg.diffusion.uncond_type != "empty_seq":
+        raise NotImplementedError(f"uncond_type {cfg.diffusion.uncond_type!r} is not ported yet")
+    if not os.path.exists(args.ckpt_path):
+        raise FileNotFoundError(f"Error: checkpoint [{args.ckpt_path}] Not Found!")
+    device = resolve_device(device)
+    log.info("loading checkpoint %s", args.ckpt_path)
+    with torch.device(device):
+        model = LatentDiffusion(cfg.unet, cfg.vae, cfg.clip,
+                                scale_factor=cfg.diffusion.scale_factor)
+    model.to(PRECISIONS[args.precision]).eval().requires_grad_(False)
+    skipped = load_checkpoint(args.ckpt_path, model)
+    log.info("skipped %d non-model checkpoint keys", len(skipped))
+    moca = MoCAConfig(gamma=args.gamma, inject_into_queue=args.inject_into_queue)
+    return MoCAVideoPipeline(
+        model, load_tokenizer(args.bpe_path), video_length=args.video_length,
+        num_partitions=args.num_partitions, new_video_length=args.new_video_length,
+        guidance_scale=args.unconditional_guidance_scale, eta=args.eta, fps=args.fps,
+        lookahead_denoising=args.lookahead_denoising, moca=moca,
+        use_scale=cfg.diffusion.use_scale, checkpoint_every=args.checkpoint_every,
+        tail_mode=args.tail_mode)
+
+
+def set_directory(args, prompt: str, conditioned_image_path: str):
+    """Output and latents directories (videocrafter_main.py:25-63)."""
+    if args.output_dir is None:
+        output_dir = f"results/moca_tpu/{prompt[:100]}"
+        if args.eta != 1.0:
+            output_dir += f"/eta{args.eta}"
+        if args.new_video_length != 100:
+            output_dir += f"/{args.new_video_length}frames"
+    else:
+        output_dir = args.output_dir
+    latents_dir = (f"results/moca_tpu/latents/{args.num_inference_steps}steps/"
+                   f"{prompt[:100]}/eta{args.eta}")
+    stem = os.path.splitext(os.path.basename(conditioned_image_path))[0]
+    output_dir = os.path.join(output_dir, stem)
+    os.makedirs(output_dir, exist_ok=True)
+    os.makedirs(latents_dir, exist_ok=True)
+    return output_dir, latents_dir
+
+
+def main(args):
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh: multi-GPU sharding is not ported yet (ROADMAP Queue 1 item 8)")
+    args.num_inference_steps = args.video_length * args.num_partitions
+    pipe = load_pipeline(args)
+    device = pipe.model.device
+    latent_hw = (args.height // 8, args.width // 8)
+
+    if args.use_davis:
+        if not args.video_name:
+            raise ValueError("--video_name required with --use_davis")
+        frames, masks = load_davis_data(args.video_name, args.davis_root, video_size=latent_hw,
+                                        video_frames=DAVIS_FRAMES,
+                                        sampling_strategy=args.sampling_strategy)
+        prompt = get_davis_prompt(args.video_name) + " cat."
+        output_dir, _ = set_directory(args, args.video_name, args.conditioned_image_path)
+        cond_image = load_conditioning_image(args.conditioned_image_path, latent_hw)
+        normal = GeneratorNormal(args.seed, device)
+        clean = pipe.model.encode_frames(frames[None], normal)
+        video = pipe(prompt, normal=normal, cond_image=cond_image, gamma=args.gamma,
+                     height=args.height, width=args.width, clean_latents=clean, masks=masks,
+                     davis_frames=frames)
+        out = os.path.join(output_dir, args.video_name)
+        keep = video[: args.new_video_length // 2]  # videocrafter_main.py:172
+        save_video(keep, out + (".mp4" if args.use_mp4 else ".gif"), fps=args.output_fps)
+        log.info("wrote %s", out)
+        return
+
+    prompt_list = load_prompts(args.prompt_file, args.prompt_index)
+    for idx in list(range(len(prompt_list)))[args.rank:: args.num_processes]:
+        data = prompt_list[idx]
+        prompt = data["prompt"]
+        output_dir, latents_dir = set_directory(args, prompt, data["conditioned_image_path"])
+        cond_image = load_conditioning_image(data["conditioned_image_path"], latent_hw)
+        frame_cb = viz = None
+        if args.save_frames:
+            # per-frame PNGs (funcs.py:362-365 fifo/{i}.png)
+            sink = VisualizationSink(output_dir)
+
+            def frame_cb(i, frame, _sink=sink):
+                _sink.frame(i, tensor_to_uint8(frame))
+
+        if args.save_visualizations:
+            viz = VisualizationSink(os.path.join(output_dir, "visualizations"))
+        multiprompts = None
+        if args.multiprompts:
+            *mp_prompts, mp_lengths = args.multiprompts
+            counts = [int(v) for v in mp_lengths.split(",")]
+            if len(counts) != len(mp_prompts):
+                raise ValueError("--multiprompts needs N prompts + one comma-separated list "
+                                 "of N frame counts")
+            multiprompts = list(zip(mp_prompts, counts))
+        video = pipe(prompt, seed=args.seed + idx, cond_image=cond_image,
+                     conditioned_prompt=data["conditioned_prompt"], gamma=data["gamma"],
+                     height=args.height, width=args.width, latents_dir=latents_dir,
+                     frame_callback=frame_cb, viz=viz, multiprompts=multiprompts)
+        out = os.path.join(output_dir, prompt[:100])
+        # videocrafter_main.py:230: video_frames[-new_video_length//2:]; the
+        # unary minus binds inside the floor division, so odd N keeps ceil(N/2)
+        keep = video[-args.new_video_length // 2:]
+        save_video(keep, out + (".mp4" if args.use_mp4 else ".gif"), fps=args.output_fps)
+        log.info("wrote %s", out)
+
+
+def _entry():
+    main(build_parser().parse_args())
+
+
+if __name__ == "__main__":
+    _entry()

@@ -72,8 +72,18 @@ def _cached_filter_np(shape: tuple, filter_type: str, n: int, d_s: float,
 
 def get_freq_filter(shape, filter_type: str, n: int, d_s: float, d_t: float,
                     device=None) -> torch.Tensor:
-    """The low-pass filter as a float32 tensor on `device`."""
-    filt = _cached_filter_np(tuple(shape), filter_type, n, d_s, d_t)
+    """The low-pass filter as a float32 tensor on `device`, cached there: a
+    copy from the host would wait for the device's queued work, and the FIFO
+    tail shift asks for the filter after every U-Net call. Callers must not
+    write to it."""
+    return _cached_filter(tuple(shape), filter_type, n, d_s, d_t,
+                          torch.device("cpu" if device is None else device))
+
+
+@functools.lru_cache(maxsize=8)
+def _cached_filter(shape: tuple, filter_type: str, n: int, d_s: float, d_t: float,
+                   device: torch.device) -> torch.Tensor:
+    filt = _cached_filter_np(shape, filter_type, n, d_s, d_t)
     return torch.as_tensor(np.ascontiguousarray(filt), device=device)
 
 

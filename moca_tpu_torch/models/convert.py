@@ -150,7 +150,7 @@ def unet_from_jax(params, cfg: UNetConfig) -> StateDict:
 
 
 # ---------------------------------------------------------------------------
-# VAE (decode path)
+# VAE
 # ---------------------------------------------------------------------------
 
 def _vae_resblock(sd, prefix, p):
@@ -169,10 +169,27 @@ def _vae_attn(sd, prefix, p):
 
 
 def vae_from_jax(params, cfg: VAEConfig) -> StateDict:
-    """JAX AutoencoderKL params -> the port's (decoder-only) state_dict."""
+    """JAX AutoencoderKL params -> the port's state_dict (encoder,
+    quant_conv, decoder, post_quant_conv)."""
     p = _params(params)
-    dec = p["decoder"]
+    enc, dec = p["encoder"], p["decoder"]
     sd: StateDict = {}
+    _conv2d(sd, "encoder.conv_in", enc["conv_in"])
+    curr_res = cfg.resolution
+    for i in range(len(cfg.ch_mult)):
+        for b in range(cfg.num_res_blocks):
+            _vae_resblock(sd, f"encoder.down.{i}.block.{b}", enc[f"down{i}_block{b}"])
+            if curr_res in cfg.attn_resolutions:
+                _vae_attn(sd, f"encoder.down.{i}.attn.{b}", enc[f"down{i}_attn{b}"])
+        if i != len(cfg.ch_mult) - 1:
+            _conv2d(sd, f"encoder.down.{i}.downsample.conv", enc[f"down{i}_downsample"]["conv"])
+            curr_res //= 2
+    _vae_resblock(sd, "encoder.mid.block_1", enc["mid_block1"])
+    _vae_attn(sd, "encoder.mid.attn_1", enc["mid_attn"])
+    _vae_resblock(sd, "encoder.mid.block_2", enc["mid_block2"])
+    _norm(sd, "encoder.norm_out", enc["norm_out"])
+    _conv2d(sd, "encoder.conv_out", enc["conv_out"])
+    _conv2d(sd, "quant_conv", p["quant_conv"])
     _conv2d(sd, "decoder.conv_in", dec["conv_in"])
     _vae_resblock(sd, "decoder.mid.block_1", dec["mid_block1"])
     _vae_attn(sd, "decoder.mid.attn_1", dec["mid_attn"])

@@ -1,9 +1,9 @@
-"""LatentDiffusion bundle: U-Net + VAE decoder + CLIP text encoder.
+"""LatentDiffusion bundle: U-Net + VAE + CLIP text encoder.
 
 Port of the crossattn path of moca_tpu/models/latent_diffusion.py: the
 three towers as `nn.Module`s on one device, with `apply_unet`,
-`encode_tokens` and `decode_single`. Video tensors are channels-last
-[B, T, H, W, C].
+`encode_tokens`, `encode_frames`, `encode_frame_moments` and
+`decode_single`. Video tensors are channels-last [B, T, H, W, C].
 """
 
 from __future__ import annotations
@@ -15,6 +15,9 @@ from moca_tpu_torch import resolve_device
 from moca_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from moca_tpu_torch.models.unet3d import UNet3D, UNetConfig
 from moca_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from moca_tpu_torch.utils import distributions
+
+ENCODE_CHUNK = 8  # frames per encoder call in encode_frames
 
 
 class LatentDiffusion(nn.Module):
@@ -39,6 +42,38 @@ class LatentDiffusion(nn.Module):
         """[B, 77] int -> [B, 77, width] float32."""
         tokens = torch.as_tensor(tokens, dtype=torch.long, device=self.device)
         return self.clip(tokens).float()
+
+    @torch.inference_mode()
+    def encode_frame_moments(self, frames):
+        """[N, H, W, 3] in [-1, 1] -> (mean, std) float32 of the scaled-latent
+        posterior [N, h, w, 4]. The DAVIS anchor is re-encoded with a fresh
+        posterior sample on every FIFO shift (funcs.py:101-114); the encoder
+        is deterministic, so `mean + std * eps` per shift from these moments
+        is the same draw at one encoder pass."""
+        frames = torch.as_tensor(frames, device=self.device)
+        mean, logvar = self._moments(frames)
+        return self.scale_factor * mean, self.scale_factor * torch.exp(0.5 * logvar)
+
+    @torch.inference_mode()
+    def encode_frames(self, frames, normal=None, tag: tuple = ("encode",)) -> torch.Tensor:
+        """[B, T, H, W, 3] in [-1, 1] -> latents [B, T, h, w, 4] float32 times
+        scale_factor (encode_first_stage_2DAE, ddpm3d.py:485-490, batched).
+        The posterior sample is one draw `tag` over all B*T frames, made after
+        every moment is computed, so the chunking leaves it unchanged; with
+        no `normal` the posterior mean."""
+        frames = torch.as_tensor(frames, device=self.device)
+        b, t = frames.shape[:2]
+        mean, logvar = self._moments(frames.reshape((b * t,) + tuple(frames.shape[2:])))
+        z = mean if normal is None else distributions.sample(mean, logvar, normal, tag)
+        return self.scale_factor * z.reshape((b, t) + tuple(z.shape[1:]))
+
+    def _moments(self, frames, chunk: int = ENCODE_CHUNK):
+        """Encoder moments in float32, over chunks of `chunk` frames: the
+        encoder's fp32 norm activations grow with the frames of one call."""
+        parts = [self.vae.encode_moments(frames[i:i + chunk])
+                 for i in range(0, frames.shape[0], chunk)]
+        return (torch.cat([m for m, _ in parts]).float(),
+                torch.cat([lv for _, lv in parts]).float())
 
     def decode_single(self, z_frame) -> torch.Tensor:
         """[B, h, w, 4] scaled latents -> [B, H, W, 3] float32 (the per-output-

@@ -1,11 +1,13 @@
-"""AE-KL first-stage VAE, decoder path.
+"""AE-KL first-stage VAE.
 
-Port of the decode path of moca_tpu/models/vae.py (`Decoder`,
-`post_quant_conv`, :154-223): channels-last [N, h, w, z] latents to
-[N, H, W, 3] frames. Module names follow the upstream checkpoint
-(`decoder.up.{i}.block.{j}`, `decoder.mid.attn_1`, ...). The mid-block
-attention is single-head with d = 512 and stays plain torch, as it is XLA in
-the reference. The encoder is not ported yet.
+Port of moca_tpu/models/vae.py: the encoder (`Encoder`, `Downsample`,
+`quant_conv`, `encode_moments`, `encode`, :96-152, 185-216) takes
+channels-last [N, H, W, 3] frames to the posterior moments [N, h, w, z];
+the decoder (`Decoder`, `post_quant_conv`, :154-223) takes [N, h, w, z]
+latents back to [N, H, W, 3] frames. Module names follow the upstream
+checkpoint (`encoder.down.{i}.block.{j}`, `decoder.up.{i}.block.{j}`,
+`decoder.mid.attn_1`, ...). The mid-block attention is single-head with
+d = 512 and stays plain torch, as it is XLA in the reference.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from torch import nn
 
 from moca_tpu_torch.models.unet3d import Conv2d
 from moca_tpu_torch.ops.norms import GroupNorm32
+from moca_tpu_torch.utils import distributions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +97,17 @@ class Upsample(nn.Module):
         return self.conv(x.permute(0, 2, 3, 1))
 
 
+class Downsample(nn.Module):
+    """Asymmetric pad (0, 1, 0, 1), then a stride-2 3x3 conv (ae_modules.py:92-110)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 0, 0, 1, 0, 1)))
+
+
 class _Mid(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
@@ -103,6 +117,49 @@ class _Mid(nn.Module):
 
     def forward(self, x):
         return self.block_2(self.attn_1(self.block_1(x)))
+
+
+class Encoder(nn.Module):
+    """num_res_blocks blocks per level, a Downsample between levels
+    (ae_modules.py:364-465)."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.conv_in = Conv2d(cfg.in_channels, cfg.ch, 3, padding=1)
+        curr_res, block_in = cfg.resolution, cfg.ch
+        down = []
+        for i, mult in enumerate(cfg.ch_mult):
+            level = nn.Module()
+            block_out = cfg.ch * mult
+            blocks, attns = [], []
+            for _ in range(cfg.num_res_blocks):
+                blocks.append(ResnetBlock(block_in, block_out))
+                block_in = block_out
+                if curr_res in cfg.attn_resolutions:
+                    attns.append(AttnBlock(block_in))
+            level.block = nn.ModuleList(blocks)
+            level.attn = nn.ModuleList(attns)
+            if i != len(cfg.ch_mult) - 1:
+                level.downsample = Downsample(block_in)
+                curr_res //= 2
+            down.append(level)
+        self.down = nn.ModuleList(down)
+        self.mid = _Mid(block_in)
+        self.norm_out = _norm(block_in)
+        z_ch = 2 * cfg.z_channels if cfg.double_z else cfg.z_channels
+        self.conv_out = Conv2d(block_in, z_ch, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for i, level in enumerate(self.down):
+            for j, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[j](h)
+            if i != len(self.down) - 1:
+                h = level.downsample(h)
+        h = self.mid(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
 
 
 class Decoder(nn.Module):
@@ -149,13 +206,32 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """The decode half of the first-stage autoencoder (autoencoder.py:23-113)."""
+    """The first-stage autoencoder (autoencoder.py:23-113), quant_conv and
+    post_quant_conv 1x1 convs included."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+        self.quant_conv = Conv2d(2 * cfg.z_channels if cfg.double_z else cfg.z_channels,
+                                 (2 if cfg.double_z else 1) * cfg.embed_dim, 1)
         self.post_quant_conv = Conv2d(cfg.embed_dim, cfg.z_channels, 1)
+
+    def encode_moments(self, x):
+        """[N, H, W, 3] -> (mean, logvar), each [N, h, w, embed_dim] in the
+        parameters' type, logvar clamped to [-30, 20]."""
+        x = x.to(self.quant_conv.weight.dtype)
+        mean, logvar = torch.chunk(self.quant_conv(self.encoder(x)), 2, dim=-1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
+
+    def encode(self, x, normal=None, tag: tuple = ("encode",)):
+        """The posterior sample drawn as `tag` (ddpm3d.py:458-465), or the
+        mean when no `normal` is given."""
+        mean, logvar = self.encode_moments(x)
+        if normal is None:
+            return mean
+        return distributions.sample(mean, logvar, normal, tag)
 
     def decode(self, z):
         """[N, h, w, z] latents (unscaled) -> [N, H, W, 3]."""

@@ -35,6 +35,14 @@ class GeneratorNormal:
         return torch.randn(shape, generator=self.generator, device=self.device,
                            dtype=torch.float32)
 
+    def get_state(self) -> torch.Tensor:
+        """The generator's position (a CPU uint8 tensor, CUDA generators too):
+        a resumed run restores it to draw what the killed run would have."""
+        return self.generator.get_state()
+
+    def set_state(self, state) -> None:
+        self.generator.set_state(torch.as_tensor(state, dtype=torch.uint8).cpu())
+
 
 def shared_normal(normal: Normal, tag: tuple, shape) -> torch.Tensor:
     """Noise shared across the leading batch axis: draw [1, ...] and

@@ -84,6 +84,16 @@ def make_fifo_plan(sch_ddim_timesteps: np.ndarray, video_length: int,
                     indices.astype(np.int64))
 
 
+def advance_prompt_index(i: int, num_steps: int, video_length: int, cum_lengths,
+                         j: int) -> int:
+    """Multi-prompt scene switching: advance the active prompt when the
+    output-frame counter passes the cumulative scene length (funcs.py:425-431;
+    clamped at the last prompt)."""
+    if i - (num_steps - video_length) >= cum_lengths[j] and j + 1 < len(cum_lengths):
+        return j + 1
+    return j
+
+
 def queue_frame_indices(plan: FIFOPlan, num_source_frames: int):
     """(frame_idx[Q], ddim_idx[Q]): slot i holds frame max(0, i-(S-T0)) at
     alpha_i; lookahead prepends f/2 copies of frame 0 at alpha_0."""
@@ -106,21 +116,24 @@ def prepare_queue(sch: DiffusionSchedule, plan: FIFOPlan, clean_latents: torch.T
 
 
 def shift_queue(latents: torch.Tensor, normal: Normal, tag: tuple,
+                anchor: Optional[torch.Tensor] = None, filter_type: str = "gaussian",
                 tail_mode: str = "freeinit") -> torch.Tensor:
     """Pop the head, push a new tail (funcs.py:86-99).
 
-    "freeinit": the tail keeps the low frequencies of queue slot 0 and takes
-    fresh noise's high frequencies through a gaussian LPF, d_s = d_t = 0.25
-    (scripts/evaluation/funcs.py:95-97). "plain": the tail is pure fresh
-    noise (funcs_mp.py:39-46)."""
+    "freeinit": the tail keeps the low frequencies of the anchor [B, h, w, C]
+    (queue slot 0 by default; the re-encoded last real frame in DAVIS mode)
+    and takes fresh noise's high frequencies through a `filter_type` LPF,
+    d_s = d_t = 0.25 (scripts/evaluation/funcs.py:95-97). "plain": the tail
+    is pure fresh noise and the anchor is unused (funcs_mp.py:39-46)."""
     if tail_mode == "plain":
         tail = shared_normal(normal, tag, latents[:, :1].shape).to(latents.dtype)
         return torch.cat([latents[:, 1:], tail], dim=1)
     if tail_mode != "freeinit":
         raise ValueError(f"unknown tail_mode {tail_mode!r}")
-    anchor = latents[:, 0]
+    if anchor is None:
+        anchor = latents[:, 0]
     _, h, w, _ = anchor.shape
-    lpf = freeinit.get_freq_filter((1, h, w), "gaussian", 1, 0.25, 0.25, device=anchor.device)
+    lpf = freeinit.get_freq_filter((1, h, w), filter_type, 1, 0.25, 0.25, device=anchor.device)
     noise = shared_normal(normal, tag, anchor.shape).to(anchor.dtype)
     # [B,h,w,C] -> [B,C,1,h,w] for the (T,H,W) fft axes, then back
     a = anchor.permute(0, 3, 1, 2)[:, :, None]
@@ -155,11 +168,14 @@ def _scatter_windows(latents: torch.Tensor, x_prev: torch.Tensor,
 def fifo_step(eps_window_fn: Callable, sch: DiffusionSchedule, plan: FIFOPlan,
               moca_cfg: MoCAConfig, latents: torch.Tensor, normal: Normal, tag: tuple,
               cond_image: Optional[torch.Tensor] = None,
-              masks: Optional[torch.Tensor] = None, gamma: Optional[float] = None):
+              masks: Optional[torch.Tensor] = None, masks_are_davis: bool = True,
+              gamma: Optional[float] = None, with_pred_x0: bool = False):
     """One FIFO iteration: denoise all windows in one U-Net batch, run the
     MoCA step per window (draws tag+("win", r, "frame", j)), write back.
-    Given masks are queue-aligned DAVIS-style masks. Returns (new_queue,
-    head_latent)."""
+    `masks` are queue-aligned [B, Q, h, w, 1], DAVIS masks or, with
+    `masks_are_davis=False`, a mask provider's. Returns (new_queue,
+    head_latent), and with `with_pred_x0` also the queue-aligned
+    pre-injection pred_x0 (scatter_pred_x0) for a host-side mask provider."""
     R, B, f = plan.num_windows, latents.shape[0], plan.f
     windows = _gather_windows(latents, plan)               # [R, B, f, h, w, C]
     w_ts, w_idx = plan.window_timesteps(), plan.window_indices()
@@ -168,12 +184,30 @@ def fifo_step(eps_window_fn: Callable, sch: DiffusionSchedule, plan: FIFOPlan,
     eps = eps_window_fn(flat_x, flat_t).reshape(windows.shape)
     w_masks = None if masks is None else _gather_windows(masks, plan)
 
-    x_prev = []
+    x_prev, pred_pre = [], []
     for r in range(R):
-        xp, _ = moca_window_step(
+        out = moca_window_step(
             sch, moca_cfg, windows[r], eps[r], w_idx[r], w_ts[r], normal, tag + ("win", r),
             cond_image=cond_image, masks=None if w_masks is None else w_masks[r],
-            gamma=gamma)
-        x_prev.append(xp)
+            masks_are_davis=masks_are_davis, gamma=gamma, with_preinject=with_pred_x0)
+        x_prev.append(out[0])
+        if with_pred_x0:
+            pred_pre.append(out[2])
     new_latents = _scatter_windows(latents, x_prev, plan)
-    return new_latents, new_latents[:, plan.head_slot]
+    head = new_latents[:, plan.head_slot]
+    if with_pred_x0:
+        return new_latents, head, scatter_pred_x0(pred_pre, plan)
+    return new_latents, head
+
+
+def scatter_pred_x0(pred, plan: FIFOPlan) -> torch.Tensor:
+    """Queue-aligned pred_x0 from the windows' [R][B, f, ...]: the tiling of
+    `_scatter_windows`, except that the lookahead prefix (slots [0, f/2),
+    which no window commits) comes from window 0's first half, as the
+    reference's per-frame segmentation sees those frames (funcs.py:306)."""
+    if plan.lookahead:
+        half = plan.f // 2
+        parts = [pred[0][:, :half]] + [pred[r][:, half:] for r in range(plan.num_windows)]
+    else:
+        parts = [pred[r] for r in range(plan.num_windows)]
+    return torch.cat(parts, dim=1)

@@ -41,10 +41,13 @@ def moca_window_step(sch: DiffusionSchedule, cfg: MoCAConfig, x: torch.Tensor,
                      eps: torch.Tensor, indices, timesteps, normal: Normal, tag: tuple,
                      cond_image: Optional[torch.Tensor] = None,
                      masks: Optional[torch.Tensor] = None, masks_are_davis: bool = True,
-                     gamma: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     gamma: Optional[float] = None,
+                     with_preinject: bool = False) -> Tuple[torch.Tensor, ...]:
     """One diagonal denoise of a window x, eps [B, f, h, w, C] with per-frame
     DDIM `indices` and DDPM `timesteps` ([f], host integers). Returns
-    (x_prev, pred_x0). Frame j's noise is the draw tag+("frame", j), shaped
+    (x_prev, pred_x0), and with `with_preinject` also the momentum-corrected
+    pred_x0 before injection and blend, the tensor the reference segments
+    (ddim.py:592-606). Frame j's noise is the draw tag+("frame", j), shaped
     [1, h, w, C] and shared across B."""
     f = x.shape[1]
     g = cfg.gamma if gamma is None else gamma
@@ -59,7 +62,7 @@ def moca_window_step(sch: DiffusionSchedule, cfg: MoCAConfig, x: torch.Tensor,
 
     prev_frame = torch.zeros_like(x[:, 0])
     momentum = torch.zeros_like(x[:, 0])
-    x_prevs, preds = [], []
+    x_prevs, preds, pre = [], [], []
     for j in range(f):
         x_i, e_i = x[:, j], eps[:, j]
         idx, t_i = int(indices[j]), int(timesteps[j])
@@ -75,6 +78,8 @@ def moca_window_step(sch: DiffusionSchedule, cfg: MoCAConfig, x: torch.Tensor,
             strength = cfg.correction_gain * (1.0 - np.float32(t_i) / np.float32(1000.0))
             pred_x0 = pred_x0 + float(strength) * momentum
         prev_frame = pred_x0
+        if with_preinject:
+            pre.append(pred_x0)
 
         noise = sigma * shared_normal(normal, tag + ("frame", j), x_i.shape).to(x_i.dtype)
         x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt + noise
@@ -96,4 +101,5 @@ def moca_window_step(sch: DiffusionSchedule, cfg: MoCAConfig, x: torch.Tensor,
 
         preds.append((1.0 - g) * pred_x0 + g * noise)  # gamma noise blend (ddim.py:609)
         x_prevs.append(x_prev)
-    return torch.stack(x_prevs, dim=1), torch.stack(preds, dim=1)
+    out = torch.stack(x_prevs, dim=1), torch.stack(preds, dim=1)
+    return out + (torch.stack(pre, dim=1),) if with_preinject else out

@@ -1,8 +1,11 @@
 """The port stands alone: no JAX and nothing of the JAX package.
 
 A fresh interpreter imports every module of moca_tpu_torch and everything
-chip_smoke.py imports, then lists the loaded modules. And the port's entry
-points refuse to run without a GPU unless the caller names the CPU.
+chip_smoke.py imports, then lists the loaded modules: no JAX, nothing of the
+JAX package, and no image or YAML library (PIL, cv2, imageio, yaml), which
+the GPU machine need not have; the port imports those inside the functions
+that use them. And the port's entry points refuse to run without a GPU
+unless the caller names the CPU.
 """
 
 import ast
@@ -40,7 +43,8 @@ def _chip_smoke_imports():
 def test_port_and_chip_smoke_import_no_jax_and_no_moca_tpu():
     port = ["moca_tpu_torch"] + sorted(
         m.name for m in pkgutil.walk_packages(moca_tpu_torch.__path__, "moca_tpu_torch."))
-    assert "moca_tpu_torch.pipelines.moca_video" in port
+    assert {"moca_tpu_torch.pipelines.moca_video", "moca_tpu_torch.cli.main",
+            "moca_tpu_torch.io.davis", "moca_tpu_torch.config"} <= set(port)
     modules = port + _chip_smoke_imports() + ["chip_smoke"]
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}:\n"
@@ -52,7 +56,8 @@ def test_port_and_chip_smoke_import_no_jax_and_no_moca_tpu():
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded
-           if m.split(".")[0] in ("jax", "jaxlib", "flax", "moca_tpu")]
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "moca_tpu", "PIL", "cv2", "imageio",
+                                  "yaml")]
     assert not bad, bad
     assert "moca_tpu_torch.ops.flash_attention" in loaded
 

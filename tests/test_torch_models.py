@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from test_models import randomize_zero_params
+from test_torch_sampling import one_torch_thread  # noqa: F401  (fixture)
 
 from moca_tpu.models import clip_text as jclip
 from moca_tpu.models import unet3d as junet

@@ -26,6 +26,17 @@ from moca_tpu_torch.sampling import moca as tmoca
 ATOL = 1e-5  # elementwise fp32 maths on O(1) values
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for these tiny tensors: the tests run in parallel
+    workers, and torch's thread pools oversubscribe the cores between them
+    (a test of a few seconds alone took minutes in a 6-worker run)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class JaxReplayNormal:
     """`normal(tag, shape)` that replays jax.random.normal(resolve(tag), shape)."""
 
@@ -45,15 +56,19 @@ def window_keys(key, windows: int, f: int):
     return lambda r, j: jax.random.split(per_window[r], f)[j]
 
 
-def pipeline_keys(root, steps: int, total: int, windows: int, f: int):
-    """MoCAVideoPipeline.__call__'s key layout (moca_video.py:285, ddim.py:170-174,
-    fifo.py:140,174,256, moca.py:87,128): tag -> key."""
+def pipeline_keys(root, steps: int, total: int, windows: int, f: int, encode_key=None):
+    """MoCAVideoPipeline.__call__'s key layout (moca_video.py:119, 285, ddim.py:170-174,
+    fifo.py:140,174,256, moca.py:87,128): tag -> key. ("encode",) is the
+    posterior draw of `encode_frames`, made with `encode_key` (the JAX CLI's
+    key_enc, cli/main.py:191-192, beside the pipeline's key `root`)."""
     k_base, k_queue, k_fifo = jax.random.split(root, 3)
     key_init, key_steps = jax.random.split(k_base)
     step_keys = jax.random.split(key_steps, steps)
     iter_keys = jax.random.split(k_fifo, total)
 
     def resolve(tag):
+        if tag == ("encode",) and encode_key is not None:
+            return encode_key
         if tag == ("base", "init"):
             return key_init
         if tag[:2] == ("base", "step"):
@@ -61,9 +76,11 @@ def pipeline_keys(root, steps: int, total: int, windows: int, f: int):
         if tag == ("queue",):
             return k_queue
         if tag[0] == "fifo":
-            k_win, k_shift, _ = jax.random.split(iter_keys[tag[1]], 3)
+            k_win, k_shift, k_anchor = jax.random.split(iter_keys[tag[1]], 3)
             if tag[2] == "shift":
                 return k_shift
+            if tag[2] == "anchor":
+                return k_anchor
             assert tag[2] == "win" and tag[4] == "frame", tag
             return window_keys(k_win, windows, f)(tag[3], tag[5])
         raise KeyError(tag)

@@ -14,7 +14,7 @@ import jax
 import numpy as np
 import pytest
 from test_models import randomize_zero_params
-from test_torch_sampling import JaxReplayNormal, pipeline_keys
+from test_torch_sampling import JaxReplayNormal, one_torch_thread, pipeline_keys  # noqa: F401
 
 from moca_tpu.models.clip_text import CLIPTextConfig as JCLIPConfig
 from moca_tpu.models.latent_diffusion import init_random_model as jinit
