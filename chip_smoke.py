@@ -45,11 +45,29 @@ Phases, each failing loudly (non-zero exit, no result line):
      mode with a CallbackMaskProvider whose detector thresholds the frame
      and sleeps 0.2 s an iteration (spread over the iteration's low-t
      frames), with `seg_async` and a snapshot every 16 iterations; its
-     mask_provider and fifo_iteration stage seconds beside phase 4's, to
-     show whether the provider's time hides under the U-Net.
-Phases 4, 6 and 7 set every kernel's launch count to 0 just before their
-run and read it just after. Prints a JSON line of kernel measurements, then
-as the last line {"ok": true, "device": {...}}.
+     mask_provider and fifo_iteration stage seconds beside the same call
+     without a provider, to show whether the provider's time hides;
+  8. batch text-to-video through moca_tpu_torch.cli.inference.main on the
+     same model: 4 prompts in a file, one --bs 4 round at 512x320, f=16,
+     50 DDIM steps, eta 1, guidance 12, fps 28 (the CLI's defaults), mp4s
+     under build/; then --bs 1 on prompts 0 and 1 with the same seed:
+     prompt 0's clip held to the round's (BATCH_REL_TOL; the planted fault
+     is prompt 1, which drew its own index's noise there, against the
+     round's);
+  9. the T2V variants at full width, B=1, 10 DDIM steps: cfg_ours with
+     temporal guidance (and one forward with no_temporal_attn, which must
+     launch no K2), uncond_type='zero_embed', FreeInit with 2 iterations;
+     then DDPM (1000 steps) at 128x128 through the CLI;
+ 10. MoCA with B=2 prompts at full width (32 U-Net rows an iteration), 16
+     new frames, then prompt 0 alone at the same length and seed, held to
+     stream 0 (BATCH_REL_TOL; the planted fault is stream 0 regrouped from
+     the frame list with the wrong stride).
+Phase 2 also holds K1 and K2 (and K3/K4, as the switches would send them)
+at every shape that phases 8-10 give them. Phases 4 and 6-10 set every
+kernel's launch count to 0 just before each run and read it just after; every
+shape a kernel received must have been held to its plain version in phase 2.
+Every phase prints its seconds. Prints a JSON line of kernel measurements,
+then as the last line {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py [new_video_length (default 4)]
 """
@@ -84,6 +102,18 @@ SEG_SLEEP_S = 0.2  # the stand-in detector's time per FIFO iteration
 # rounds the scaled q); the same limit as the bf16-vs-fp32 check above.
 SWITCHED_REL_TOL = 5e-2
 SWITCHES = {"MOCA_TPU_FA_FUSED_QKV": "1", "MOCA_TPU_FA_ONEPASS": "1"}
+# A batched run's clip against the single run of its prompt with the same
+# noise, relative L2 over the clip: the bf16 products round differently at
+# another batch size (cuBLAS picks its kernel by the row count), and the
+# samplers carry that through every step (3.3e-3 for T2V --bs 4 against
+# --bs 1, 3.1e-3 for MoCA B=2 against B=1 on an H100; the limit is 6x). With
+# random weights another prompt's clip of the same batch reads the same
+# against that run (the text moves a clip no more than the rounding does),
+# so the planted faults are the ones the checks exist to catch: a clip drawn
+# from another prompt index's noise (a wrong noise mapping) and a stream
+# regrouped from the iteration-major frame list with the wrong stride.
+# Another prompt's reading is printed beside them.
+BATCH_REL_TOL = 2e-2
 KERNEL_NAMES = ("flash_attention", "packed_attention", "fused_qkv_attention",
                 "flash_attention_onepass")
 
@@ -394,24 +424,52 @@ def check_fused(n, s, c, gen, rows, reps=10):
                      path=path, cluster=cl))
 
 
-def main_path_shapes(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int,
-                     lat=(40, 64), f=16):
+def unet_shapes(rows: int, ctx: int, lat=(40, 64), f=16):
     """(K1 [B,Sq,Sk,H,D] shapes, K2 [N,S,C] shapes) that the shipped U-Net
-    gives the kernels at a window batch of `rows` x f frames and a text
-    context of `ctx` tokens: spatial self-attention at ds 1, 2, 4; text
-    cross-attention there too when the context reaches 128 tokens (the
-    reference's flash threshold); temporal attention at every level, the
-    8-head init attention and the middle block."""
+    gives the kernels at a batch of `rows` x f frames on an h x w latent and
+    a text context of `ctx` tokens: spatial self-attention at ds 1, 2, 4
+    where it has at least 128 tokens, and text cross-attention there when
+    the context has too (the reference's flash threshold; smaller ones take
+    the plain path); temporal attention at every level, the 8-head init
+    attention and the middle block."""
     k1, k2 = [], []
-    for rows, ctx in ((rows_fifo, ctx_fifo), (rows_base, ctx_base)):
-        for lvl, ch in enumerate((320, 640, 1280)):
-            hh, ww = lat[0] >> lvl, lat[1] >> lvl
+    for lvl, ch in enumerate((320, 640, 1280)):
+        hh, ww = lat[0] >> lvl, lat[1] >> lvl
+        if hh * ww >= 128:
             k1.append((rows * f, hh * ww, hh * ww, ch // 64, 64))
             if ctx >= 128:
                 k1.append((rows * f, hh * ww, ctx, ch // 64, 64))
-            k2.append((rows * hh * ww, f, ch))
-        k2.append((rows * lat[0] * lat[1], f, 512))                  # init attention
-        k2.append((rows * (lat[0] >> 3) * (lat[1] >> 3), f, 1280))   # middle block
+        k2.append((rows * hh * ww, f, ch))
+    k2.append((rows * lat[0] * lat[1], f, 512))                  # init attention
+    k2.append((rows * (lat[0] >> 3) * (lat[1] >> 3), f, 1280))   # middle block
+    return k1, k2
+
+
+def main_path_shapes(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int):
+    """unet_shapes of the main path's FIFO batch and of its base sample."""
+    k1, k2 = [], []
+    for rows, ctx in ((rows_fifo, ctx_fifo), (rows_base, ctx_base)):
+        a, b = unet_shapes(rows, ctx)
+        k1 += a
+        k2 += b
+    return k1, k2
+
+
+# The U-Net batches phases 8-10 add, as (rows, context tokens, latent h x w):
+# T2V --bs 4 (4 prompts x CFG), temporal guidance's cond-only calls (B=1),
+# DDPM at 128x128 (B=1 x CFG), and MoCA at B=2 (8 windows x CFG x 2 prompts
+# with the 154-token concept context; its base sample, 2 prompts x CFG).
+SLICE_RUNS = ((8, 77, (40, 64)), (1, 77, (40, 64)), (2, 77, (16, 16)), (32, 154, (40, 64)),
+              (4, 77, (40, 64)))
+
+
+def slice_shapes(known_k1, known_k2):
+    """(K1, K2) shapes of SLICE_RUNS that the main path's do not hold."""
+    k1, k2 = [], []
+    for rows, ctx, lat in SLICE_RUNS:
+        a, b = unet_shapes(rows, ctx, lat)
+        k1 += [sh for sh in a if sh not in known_k1 and sh not in k1]
+        k2 += [sh for sh in b if sh not in known_k2 and sh not in k2]
     return k1, k2
 
 
@@ -448,6 +506,8 @@ def phase_kernels(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     k1, k2 = main_path_shapes(rows_fifo, rows_base, ctx_fifo, ctx_base)
+    new_k1, new_k2 = slice_shapes(k1, k2)
+    k1, k2 = k1 + new_k1, k2 + new_k2
     k3, k4 = switched_shapes(k1, k2)
     for b, sq, sk, h, _ in k1:
         check_flash(b, sq, sk, h, gen, rows)
@@ -771,6 +831,239 @@ def phase_open_vocab(model, new_video_length: int, num_partitions: int):
     return launched
 
 
+T2V_PROMPTS = ("a cat surfing", "a dog skating on a ramp", "a red fox in the snow",
+               "a boat on a lake at dawn")
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| over whole clips (numpy arrays)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def hold_batch_to_single(what, batched, single, fault, fault_what, limit, other_prompt):
+    """Fail unless the batched run's clip is within `limit` (relative L2) of
+    the single run's and the planted fault's reading is beyond it; prints
+    another prompt's clip of the batch against the single run beside them."""
+    err, fault_err = rel_l2(batched, single), rel_l2(fault[0], fault[1])
+    print(f"[{what}] relative L2 {err:.3e} (limit {limit}); planted fault ({fault_what}) "
+          f"{fault_err:.3e}; the batch's prompt 1 against the same run "
+          f"{rel_l2(other_prompt, single):.3e}", flush=True)
+    if not err <= limit:
+        fail(f"{what}: relative L2 {err} > {limit}")
+    if not fault_err > limit:
+        fail(f"{what}: the planted fault reads {fault_err} <= {limit}; the check cannot tell "
+             f"it from a sound run")
+
+
+@contextlib.contextmanager
+def captured_videos():
+    """The sample videos the batch CLI hands to save_video_grid, by file
+    name; the files are still written."""
+    from moca_tpu_torch.cli import inference
+
+    written, real = {}, inference.save_video_grid
+
+    def capture(samples, path, fps=10):
+        written[os.path.basename(path)] = samples
+        real(samples, path, fps=fps)
+
+    inference.save_video_grid = capture
+    try:
+        yield written
+    finally:
+        inference.save_video_grid = real
+
+
+def run_batch_cli(pipe, argv, prompts, savedir):
+    """moca_tpu_torch.cli.inference.main on a prompt file of `prompts` with
+    `pipe` in place of the checkpoint's; returns ({mp4 name: [n_samples]
+    [T] frames}, seconds)."""
+    import shutil
+
+    from moca_tpu_torch.cli import inference
+
+    shutil.rmtree(savedir, ignore_errors=True)
+    os.makedirs(savedir)
+    prompt_file = os.path.join(savedir, "prompts.txt")
+    with open(prompt_file, "w") as f:
+        f.write("\n".join(prompts) + "\n")
+    args = inference.build_parser().parse_args(
+        ["--ckpt_path", "random-weights", "--prompt_file", prompt_file, "--savedir", savedir,
+         "--seed", str(SEED)] + list(argv))
+    with captured_videos() as written:
+        t0 = time.perf_counter()
+        inference.main(args, pipe=pipe)
+        seconds = time.perf_counter() - t0
+    for prompt in prompts:
+        name = prompt[:100].replace("/", "_") + ".mp4"
+        path = os.path.join(savedir, name)
+        if name not in written or not os.path.getsize(path):
+            fail(f"batch CLI {argv}: no video {path}")
+    return written, seconds
+
+
+def _check_clip(label, video, shape):
+    import numpy as np
+
+    clip = np.stack(video)
+    if clip.shape != shape or not np.isfinite(clip).all():
+        fail(f"{label}: clip {clip.shape} (want {shape}), finite={np.isfinite(clip).all()}")
+    return clip
+
+
+def phase_t2v_batch(model):
+    """Batch text-to-video through the CLI on the full-width model: four
+    prompts in one --bs 4 round (8 CFG rows x 16 frames), 50 DDIM steps,
+    eta 1, guidance 12, fps 28 (the CLI's defaults); then prompts 0 and 1
+    with --bs 1 and the same seed, prompt 0's clip held to the round's.
+    Returns {run: {kernel: {shape: launches}}}."""
+    import torch
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.pipelines.t2v import T2VPipeline
+
+    pipe = T2VPipeline.build(model, HashTokenizer(), num_steps=50, eta=1.0,
+                             guidance_scale=12.0, fps=28)
+    root = os.path.join("build", "smoke_t2v")
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    written, seconds = run_batch_cli(pipe, ["--bs", "4"], T2V_PROMPTS, os.path.join(root, "bs4"))
+    launched = {"t2v_bs4": _launches("t2v bs4", ("flash_attention", "packed_attention"))}
+    stages, peak = dict(pipe.timings), torch.cuda.max_memory_allocated() / 2**30
+    clips = [_check_clip(f"t2v bs4 {p}", written[p + ".mp4"][0], (16, 320, 512, 3))
+             for p in T2V_PROMPTS]
+    call = sum(stages.values())
+    print(f"[t2v bs4] 4 prompts, one round: {len(clips)} clips [16, 320, 512, 3], all finite; "
+          f"the batched call {call:.2f} s ({call / 4:.2f} s a prompt), the CLI with its mp4s "
+          f"{seconds:.2f} s ({seconds / 4:.2f} s a prompt); stages "
+          f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; peak memory "
+          f"{peak:.1f} GiB", flush=True)
+    fa.reset_launch_counts()
+    single, seconds1 = run_batch_cli(pipe, ["--bs", "1"], T2V_PROMPTS[:2],
+                                     os.path.join(root, "bs1"))
+    launched["t2v_bs1"] = _launches("t2v bs1", ("flash_attention", "packed_attention"))
+    clip1 = [_check_clip(f"t2v bs1 {p}", single[p + ".mp4"][0], (16, 320, 512, 3))
+             for p in T2V_PROMPTS[:2]]
+    print(f"[t2v bs1] prompts 0 and 1, one a call: {seconds1:.2f} s; the last call's stages "
+          f"{json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}", flush=True)
+    # prompt 1 of the round drew prompt 0's noise, its --bs 1 run its own index's
+    hold_batch_to_single("t2v bs4 prompt 0 vs bs1", clips[0], clip1[0], (clips[1], clip1[1]),
+                         "prompt 1 of the round against its --bs 1 run, other noise",
+                         BATCH_REL_TOL, clips[1])
+    return launched
+
+
+def phase_t2v_variants(model):
+    """At full width, B=1, 10 DDIM steps: cfg_ours with temporal guidance
+    (three U-Net calls a step; one forward with no_temporal_attn is shown to
+    launch no K2), uncond_type='zero_embed', FreeInit with 2 iterations;
+    then DDPM (1000 steps) at 128x128 through the CLI with --ddim_steps 0.
+    Returns {run: {kernel: {shape: launches}}}."""
+    import torch
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.pipelines.t2v import T2VPipeline
+
+    tok = HashTokenizer()
+    size = dict(height=320, width=512, frames=16)
+    prompt = T2V_PROMPTS[0]
+    launched = {}
+    runs = (("cfg_ours_temporal", dict(uc_type="cfg_ours", temporal_cfg_scale=2.0), {}),
+            ("zero_embed", dict(uncond_type="zero_embed"), {}),
+            ("freeinit", {}, dict(iterations=2)))
+    for run, build, call in runs:
+        pipe = T2VPipeline.build(model, tok, num_steps=10, guidance_scale=12.0, fps=28, **build)
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        if run == "freeinit":
+            video = pipe.sample_with_freeinit(prompt, seed=SEED, **size, **call)
+        else:
+            video = pipe(prompt, seed=SEED, **size)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched[run] = _launches(f"t2v {run}", ("flash_attention", "packed_attention"))
+        _check_clip(f"t2v {run}", video.float().cpu().numpy(), (16, 320, 512, 3))
+        print(f"[t2v {run}] 10 DDIM steps, [16, 320, 512, 3], all finite: {seconds:.2f} s; "
+              f"stages {json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}",
+              flush=True)
+        if run == "cfg_ours_temporal":  # the image branch skips every temporal transformer
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            x = torch.randn((1, 16, 40, 64, 4), generator=gen, device="cuda")
+            ctx = pipe.encode_prompts([prompt])
+            fa.reset_launch_counts()
+            with torch.inference_mode():
+                model.apply_unet(x, torch.full((1, 16), 500, device="cuda"), ctx, 28,
+                                 no_temporal_attn=True)
+            counts = {fn.__name__: sum(fn.launches.values()) for fn in fa.KERNELS}
+            if counts["packed_attention"] or not counts["flash_attention"]:
+                fail(f"a forward with no_temporal_attn launched {counts}")
+            print(f"[t2v no_temporal_attn] one forward launches {json.dumps(counts)}", flush=True)
+    pipe = T2VPipeline.build(model, tok, num_steps=0, guidance_scale=12.0, fps=28)
+    fa.reset_launch_counts()
+    written, seconds = run_batch_cli(pipe, ["--ddim_steps", "0", "--height", "128",
+                                            "--width", "128"], T2V_PROMPTS[:1],
+                                     os.path.join("build", "smoke_t2v", "ddpm"))
+    launched["t2v_ddpm"] = _launches("t2v ddpm", ("flash_attention", "packed_attention"))
+    _check_clip("t2v ddpm", written[prompt + ".mp4"][0], (16, 128, 128, 3))
+    print(f"[t2v ddpm] 1000 DDPM steps at 128x128 through the CLI, [16, 128, 128, 3], all "
+          f"finite: {seconds:.2f} s; stages "
+          f"{json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}", flush=True)
+    return launched
+
+
+def phase_moca_batched(model, num_partitions: int, new_video_length: int = 16):
+    """MoCA with B=2 prompts at full width (32 U-Net rows an iteration), the
+    concept image and conditioned prompt of phase 4, then prompt 0 alone at
+    the same length and seed, held to stream 0. Returns {run: launches}."""
+    import numpy as np
+    import torch
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
+
+    pipe = MoCAVideoPipeline(model, HashTokenizer(), video_length=16,
+                             num_partitions=num_partitions,
+                             new_video_length=new_video_length, guidance_scale=12.0)
+    call = dict(seed=SEED, cond_image=np.full((40, 64, 4), 0.2, np.float32),
+                conditioned_prompt="a dog", gamma=0.5, height=320, width=512)
+    prompts = [T2V_PROMPTS[0], T2V_PROMPTS[2]]
+    iters = new_video_length + pipe.num_inference_steps - 16
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    streams = pipe(prompts, **call)
+    total = time.perf_counter() - t0
+    launched = {"moca_b2": _launches("moca B=2", ("flash_attention", "packed_attention"))}
+    t, peak = dict(pipe.timings), torch.cuda.max_memory_allocated() / 2**30
+    for b, frames in enumerate(streams):
+        _check_frames(f"MoCA B=2 stream {b}", frames, iters)
+    steady = (t["fifo_iteration"] + t["decode"]) / iters
+    print(f"[moca B=2] 2 streams x {iters} frames, all finite; total {total:.2f} s; steady "
+          f"(FIFO+decode) {steady:.3f} s an iteration for the two streams "
+          f"({steady / 2:.3f} s a frame); stages "
+          f"{json.dumps({k: round(v, 3) for k, v in t.items()})}; peak memory {peak:.1f} GiB",
+          flush=True)
+    fa.reset_launch_counts()
+    single = pipe(prompts[0], **call)
+    launched["moca_b1"] = _launches("moca B=1", ("flash_attention", "packed_attention"))
+    _check_frames("MoCA B=1", single, iters)
+    t1 = pipe.timings
+    print(f"[moca B=1] prompt 0 alone: steady {(t1['fifo_iteration'] + t1['decode']) / iters:.3f}"
+          f" s a frame; stages {json.dumps({k: round(v, 3) for k, v in t1.items()})}",
+          flush=True)
+    # the regroup with the wrong stride: stream 0 read as the first frames of
+    # the iteration-major list, both streams' frames interleaved
+    flat = [frame for pair in zip(*streams) for frame in pair]
+    hold_batch_to_single("moca B=2 stream 0 vs B=1", np.stack(streams[0]), np.stack(single),
+                         (np.stack(flat[:iters]), np.stack(single)),
+                         "stream 0 regrouped with stride 1", BATCH_REL_TOL,
+                         np.stack(streams[1]))
+    return launched
+
+
 _CATEGORIES = (  # kernel-name substrings -> category, first match wins
     ("flash_fwd", "K1 flash_attention"), ("packed_fwd", "K2 packed_attention"),
     ("fused_qkv_fwd", "K3 fused_qkv_attention"), ("onepass_fwd", "K4 flash_attention_onepass"),
@@ -870,15 +1163,28 @@ def main(argv):
     rows_fifo = 2 * 2 * num_partitions  # windows x CFG rows
     t_start = time.perf_counter()
 
-    phase_build()
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[seconds] {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    timed("phase 1, build", phase_build)
     # text context: 77 prompt tokens, 154 with the conditioned prompt (FIFO)
-    rows = phase_kernels(rows_fifo, rows_base=2, ctx_fifo=154, ctx_base=77)
-    unet_d32 = phase_unet_reference()
-    shapes, model = phase_main_path(new_video_length, num_partitions)
+    rows = timed("phase 2, kernels against their plain versions", phase_kernels, rows_fifo, 2,
+                 154, 77)
+    unet_d32 = timed("phase 3, U-Net against its plain path", phase_unet_reference)
+    shapes, model = timed("phase 4, main path", phase_main_path, new_video_length,
+                          num_partitions)
     shapes["unet_d32"] = unet_d32
-    phase_profile(model, rows_fifo, ctx_len=154)
-    shapes["davis"] = phase_davis(model, new_video_length, num_partitions)
-    shapes["open_vocab"] = phase_open_vocab(model, new_video_length, num_partitions)
+    timed("phase 5, profile", phase_profile, model, rows_fifo, 154)
+    shapes["davis"] = timed("phase 6, DAVIS", phase_davis, model, new_video_length,
+                            num_partitions)
+    shapes["open_vocab"] = timed("phase 7, open vocab", phase_open_vocab, model,
+                                 new_video_length, num_partitions)
+    shapes.update(timed("phase 8, batch T2V", phase_t2v_batch, model))
+    shapes.update(timed("phase 9, T2V variants", phase_t2v_variants, model))
+    shapes.update(timed("phase 10, MoCA B=2", phase_moca_batched, model, num_partitions))
 
     for run, by_kernel in shapes.items():
         for name, by_shape in by_kernel.items():
@@ -887,7 +1193,7 @@ def main(argv):
             if unchecked:
                 fail(f"the path ({run}) gave {name} shapes not held to the plain version: "
                      f"{unchecked}")
-    for r in rows:  # launches over the path's three runs, and in each
+    for r in rows:  # launches over the path's runs, and in each
         kernel, shape = r["name"].split()[0], r.pop("shape")
         for run in shapes:
             r[f"launches_{run}"] = shapes[run][kernel].get(shape, 0)

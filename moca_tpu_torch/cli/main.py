@@ -111,14 +111,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_pipeline(args, device=None) -> MoCAVideoPipeline:
-    """The model from --config and --ckpt_path on `device` (the GPU unless
-    the caller names one), in --precision, behind a MoCAVideoPipeline."""
+def load_model(args, device=None):
+    """(LatentDiffusion from --config and --ckpt_path on `device`, the GPU
+    unless the caller names one, in --precision; its ModelConfig)."""
     cfg = load_model_config(args.config)
-    if cfg.is_i2v or cfg.diffusion.conditioning_key != "crossattn":
+    if cfg.is_i2v:
+        raise NotImplementedError("the i2v model is not ported yet (ROADMAP Queue 1 item 5)")
+    if cfg.diffusion.conditioning_key != "crossattn":
         raise NotImplementedError("the port runs the text-to-video crossattn model only")
-    if cfg.diffusion.uncond_type != "empty_seq":
-        raise NotImplementedError(f"uncond_type {cfg.diffusion.uncond_type!r} is not ported yet")
     if not os.path.exists(args.ckpt_path):
         raise FileNotFoundError(f"Error: checkpoint [{args.ckpt_path}] Not Found!")
     device = resolve_device(device)
@@ -129,6 +129,12 @@ def load_pipeline(args, device=None) -> MoCAVideoPipeline:
     model.to(PRECISIONS[args.precision]).eval().requires_grad_(False)
     skipped = load_checkpoint(args.ckpt_path, model)
     log.info("skipped %d non-model checkpoint keys", len(skipped))
+    return model, cfg
+
+
+def load_pipeline(args, device=None) -> MoCAVideoPipeline:
+    """`load_model` behind a MoCAVideoPipeline."""
+    model, cfg = load_model(args, device)
     moca = MoCAConfig(gamma=args.gamma, inject_into_queue=args.inject_into_queue)
     return MoCAVideoPipeline(
         model, load_tokenizer(args.bpe_path), video_length=args.video_length,
@@ -136,7 +142,7 @@ def load_pipeline(args, device=None) -> MoCAVideoPipeline:
         guidance_scale=args.unconditional_guidance_scale, eta=args.eta, fps=args.fps,
         lookahead_denoising=args.lookahead_denoising, moca=moca,
         use_scale=cfg.diffusion.use_scale, checkpoint_every=args.checkpoint_every,
-        tail_mode=args.tail_mode)
+        tail_mode=args.tail_mode, uncond_type=cfg.diffusion.uncond_type)
 
 
 def set_directory(args, prompt: str, conditioned_image_path: str):

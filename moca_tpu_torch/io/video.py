@@ -1,10 +1,12 @@
 """Host-side video and image IO (numpy arrays, CPU only).
 
 Port of moca_tpu/io/video.py: uint8 <-> [-1, 1] float conversions
-(funcs.py:565, 630-640), clip packing, mp4/gif writing, the concept image at
-latent resolution (videocrafter_main.py:90-98) and mp4 frame loading
-(funcs.py:538-574). The optional C++ `fastio` extension of the reference is
-not ported: the numpy paths compute the same values. PIL, cv2 and imageio are
+(funcs.py:565, 630-640), clip packing, mp4/gif writing, the n_samples grid
+video (funcs.py:600-612), the concept image at latent resolution
+(videocrafter_main.py:90-98), conditioning-image batches (funcs.py:576-597)
+and mp4 frame loading (funcs.py:538-574). The optional C++ `fastio`
+extension of the reference is not ported: the numpy paths compute the same
+values. PIL, cv2 and imageio are
 imported inside the functions that use them, so the package imports without
 them.
 """
@@ -54,6 +56,30 @@ def save_video(frames: Sequence[np.ndarray], path: str, fps: int = 10):
     writer.release()
 
 
+def save_gif(frames: Sequence[np.ndarray], path: str, fps: int = 10):
+    save_video(frames, path if path.endswith(".gif") else path + ".gif", fps)
+
+
+def save_video_grid(sample_videos: Sequence[Sequence[np.ndarray]], path: str, fps: int = 10,
+                    padding: int = 2):
+    """One video of n samples side by side, the reference's save_videos
+    layout (funcs.py:600-612: torchvision's make_grid(nrow=n_samples) per
+    frame, padding 2, pad value 0 in [-1, 1], i.e. a 127-gray border, also
+    around a single sample). sample_videos: n sequences of [H, W, 3] float
+    frames in [-1, 1]."""
+    n, t_len = len(sample_videos), len(sample_videos[0])
+    h, w, c = np.asarray(sample_videos[0][0]).shape
+    frames = []
+    for t in range(t_len):
+        grid = np.zeros((h + 2 * padding, n * (w + padding) + padding, c), np.float32)
+        for i in range(n):
+            x0 = padding + i * (w + padding)
+            grid[padding:padding + h, x0:x0 + w] = np.clip(
+                np.asarray(sample_videos[i][t], np.float32), -1.0, 1.0)
+        frames.append(grid)
+    save_video(frames, path, fps=fps)
+
+
 def load_conditioning_image(path: str, latent_hw: Tuple[int, int]) -> np.ndarray:
     """Concept image at latent resolution, [h, w, 4] RGBA in [0, 1]:
     torchvision's Resize((h, w)) on a PIL image is PIL's bilinear resize to
@@ -63,6 +89,29 @@ def load_conditioning_image(path: str, latent_hw: Tuple[int, int]) -> np.ndarray
     h, w = latent_hw
     img = Image.open(path).convert("RGBA").resize((w, h), Image.BILINEAR)
     return np.asarray(img, np.float32) / 255.0
+
+
+def load_image_batch(paths: Sequence[str],
+                     image_size: Tuple[int, int] = (256, 256)) -> np.ndarray:
+    """Images, or the first frames of mp4s, -> [B, H, W, C] float32 in
+    [-1, 1] (funcs.py:576-597): png/jpg keep RGBA like the reference's
+    convert, resized by cv2's bilinear on the float 0..255 values and
+    normalised after (funcs.py:587-595)."""
+    import cv2
+    from PIL import Image
+
+    batch: List[np.ndarray] = []
+    for path in paths:
+        ext = os.path.splitext(path)[1].lower()
+        if ext == ".mp4":
+            batch.append(load_video_frames(path, size=image_size, num_frames=1)[0])
+            continue
+        if ext not in (".png", ".jpg", ".jpeg"):
+            raise NotImplementedError(f"image loading supports mp4/png/jpg, got {ext}")
+        rgba = np.asarray(Image.open(path).convert("RGBA"), np.float32)
+        rgba = cv2.resize(rgba, (image_size[1], image_size[0]), interpolation=cv2.INTER_LINEAR)
+        batch.append((rgba / 255.0 - 0.5) * 2.0)
+    return np.stack(batch)
 
 
 def load_video_frames(path: str, size: Optional[Tuple[int, int]] = None,

@@ -85,6 +85,9 @@ def _attn(sd, prefix, p):
     for name in ("to_q", "to_k", "to_v"):
         _linear(sd, f"{prefix}.{name}", p[name])
     _linear(sd, f"{prefix}.to_out.0", p["to_out"])
+    for name in ("relative_position_k", "relative_position_v"):  # convert.py:113-117
+        if name in p:
+            _put(sd, f"{prefix}.{name}", embeddings_table=p[name]["embeddings_table"])
 
 
 def _transformer(sd, prefix, p, depth, conv_proj=False):

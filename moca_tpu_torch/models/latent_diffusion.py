@@ -1,9 +1,11 @@
 """LatentDiffusion bundle: U-Net + VAE + CLIP text encoder.
 
-Port of the crossattn path of moca_tpu/models/latent_diffusion.py: the
-three towers as `nn.Module`s on one device, with `apply_unet`,
-`encode_tokens`, `encode_frames`, `encode_frame_moments` and
-`decode_single`. Video tensors are channels-last [B, T, H, W, C].
+Port of moca_tpu/models/latent_diffusion.py for the text-to-video model:
+the three towers as `nn.Module`s on one device, with `apply_unet`,
+`apply_model` (the DiffusionWrapper's 12 conditioning keys),
+`count_params`, `encode_tokens`, `encode_frames`, `encode_frame_moments`,
+`decode_latents` and `decode_single`. Video tensors are channels-last
+[B, T, H, W, C]. Not yet ported: the i2v `LatentVisualDiffusion`.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from moca_tpu_torch.models.unet3d import UNet3D, UNetConfig
 from moca_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from moca_tpu_torch.utils import distributions
 
-ENCODE_CHUNK = 8  # frames per encoder call in encode_frames
+VAE_CHUNK = 8  # frames per VAE call in encode_frames and decode_latents
 
 
 class LatentDiffusion(nn.Module):
@@ -34,9 +36,80 @@ class LatentDiffusion(nn.Module):
     def device(self) -> torch.device:
         return self.unet.time_embed[0].weight.device
 
-    def apply_unet(self, x, t_frames, context, fps=16):
-        """eps prediction; x [B,T,h,w,C], t_frames [B,T], context [B,L,D]."""
-        return self.unet(x, t_frames, context, fps=fps)
+    def apply_unet(self, x, t_frames, context, fps=16, c_concat=None,
+                   no_temporal_attn: bool = False):
+        """eps prediction; x [B,T,h,w,C], t_frames [B,T], context [B,L,D].
+        c_concat [B,T,h,w,Cc] is concatenated on the channel axis (the
+        concat/hybrid modes; the U-Net is built with matching in_channels);
+        no_temporal_attn skips the temporal transformers."""
+        if c_concat is not None:
+            x = torch.cat([x, c_concat], dim=-1)
+        return self.unet(x, t_frames, context, fps=fps, no_temporal_attn=no_temporal_attn)
+
+    def apply_model(self, x, t_frames, c_concat=None, c_crossattn=None,
+                    conditioning_key="crossattn", fps=16, c_adm=None, s=None, mask=None,
+                    **kwargs):
+        """DiffusionWrapper.forward's dispatch over all 12 conditioning keys
+        (ddpm3d.py:696-763; moca_tpu/models/latent_diffusion.py:83-182).
+
+        `c_concat` and `c_crossattn` are lists: the first is concatenated on
+        the channel axis (last here), the second on the token axis. None is
+        the unconditional U-Net; 'concat' channel-concat with no context
+        (the spatial cross-attention self-attends; such a U-Net is built with
+        context_dim=None); 'crossattn' the shipped mode; 'hybrid' both;
+        'resblockcond' the first context only. The seven y/s/mask modes wire
+        their concat and context the same way and drop y, s and mask, as the
+        reference U-Net's **kwargs does; their argument checks are the
+        reference's asserts, raised explicitly. As in the reference, `fps`
+        and the other kwargs reach the U-Net only for 'concat' and
+        'crossattn': every other mode embeds the default fps=16."""
+        key = conditioning_key
+
+        def cat_x():
+            return torch.cat([x] + list(c_concat), dim=-1)
+
+        def cat_x_opt():  # concat-adm-mask and hybrid-adm-mask take c_concat=None
+            return x if c_concat is None else cat_x()
+
+        def cat_c():
+            return torch.cat(list(c_crossattn), dim=1)
+
+        def unet(xin, ctx, fwd_kwargs=False):
+            if fwd_kwargs:
+                return self.unet(xin, t_frames, ctx, fps=fps, **kwargs)
+            return self.unet(xin, t_frames, ctx)
+
+        if key is None:
+            return unet(x, None)
+        if key == "concat":
+            return unet(cat_x(), None, fwd_kwargs=True)
+        if key == "crossattn":
+            return unet(x, cat_c(), fwd_kwargs=True)
+        if key == "hybrid":
+            return unet(cat_x(), cat_c())
+        if key == "resblockcond":
+            return unet(x, c_crossattn[0])
+        if key == "adm":  # y = c_crossattn[0], dropped
+            if c_crossattn is None:
+                raise TypeError("conditioning_key 'adm' takes y from c_crossattn[0]")
+            return unet(x, None)
+        if key in ("hybrid-adm", "hybrid-time-adm", "hybrid-time"):
+            needed = "s" if key == "hybrid-time" else "c_adm"
+            if (s if key == "hybrid-time" else c_adm) is None:
+                raise AssertionError(f"conditioning_key '{key}' needs {needed}")
+            return unet(cat_x(), cat_c())
+        if key == "concat-time-mask":
+            return unet(cat_x(), None)
+        if key == "concat-adm-mask":
+            return unet(cat_x_opt(), None)
+        if key == "hybrid-adm-mask":
+            return unet(cat_x_opt(), cat_c())
+        raise NotImplementedError(f"unknown conditioning_key '{key}'")
+
+    def count_params(self) -> dict:
+        """Parameter counts per tower (utils/utils.py:8 count_params)."""
+        count = lambda m: sum(p.numel() for p in m.parameters())
+        return {"unet": count(self.unet), "vae": count(self.vae), "clip": count(self.clip)}
 
     def encode_tokens(self, tokens) -> torch.Tensor:
         """[B, 77] int -> [B, 77, width] float32."""
@@ -67,13 +140,24 @@ class LatentDiffusion(nn.Module):
         z = mean if normal is None else distributions.sample(mean, logvar, normal, tag)
         return self.scale_factor * z.reshape((b, t) + tuple(z.shape[1:]))
 
-    def _moments(self, frames, chunk: int = ENCODE_CHUNK):
+    def _moments(self, frames, chunk: int = VAE_CHUNK):
         """Encoder moments in float32, over chunks of `chunk` frames: the
         encoder's fp32 norm activations grow with the frames of one call."""
         parts = [self.vae.encode_moments(frames[i:i + chunk])
                  for i in range(0, frames.shape[0], chunk)]
         return (torch.cat([m for m, _ in parts]).float(),
                 torch.cat([lv for _, lv in parts]).float())
+
+    def decode_latents(self, z, chunk: int = VAE_CHUNK) -> torch.Tensor:
+        """[B, T, h, w, 4] scaled latents -> frames [B, T, H, W, 3] float32
+        (decode_first_stage_2DAE, ddpm3d.py:556-562), `chunk` frames a
+        decoder call: the decoder works frame by frame, and its fp32 norm
+        activations grow with the frames of one call."""
+        b, t = z.shape[:2]
+        flat = z.reshape((b * t,) + tuple(z.shape[2:]))
+        x = torch.cat([self.decode_single(flat[i:i + chunk])
+                       for i in range(0, flat.shape[0], chunk)])
+        return x.reshape((b, t) + tuple(x.shape[1:]))
 
     def decode_single(self, z_frame) -> torch.Tensor:
         """[B, h, w, 4] scaled latents -> [B, H, W, 3] float32 (the per-output-

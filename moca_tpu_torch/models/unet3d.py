@@ -1,9 +1,13 @@
 """VideoCrafter2-class 3D U-Net denoiser.
 
-Port of moca_tpu/models/unet3d.py for the shipped configuration
-(configs/inference_t2v_512_v2.0.yaml:22-50): spatial and temporal
-transformers, temporal convolutions, the `addition_attention` init
-transformer and `fps_cond`.
+Port of moca_tpu/models/unet3d.py: spatial and temporal transformers,
+temporal convolutions, the `addition_attention` init transformer and
+`fps_cond` of the shipped configuration (configs/inference_t2v_512_v2.0.yaml:
+22-50), and the options beside it: relative-position and causal temporal
+attention, `tempspatial_aware` temporal convolutions, temporal
+cross-attention to the first frame's context (`temporal_selfatt_only=False`),
+a context-free U-Net (`context_dim=None`: the spatial cross-attention
+self-attends) and `no_temporal_attn` in the forward.
 
 Layout: channels-last [B, T, H, W, C] at the public call, spatial layers on
 the flattened (B*T) frame axis, temporal layers on the flattened (B*H*W)
@@ -16,8 +20,7 @@ moca_tpu/models/convert.py `convert_unet` reads (e.g.
 `input_blocks.1.1.transformer_blocks.0.attn1.to_q`, including the
 `temopral_conv` spelling), so `convert_unet(model.state_dict(), cfg,
 prefix="")` gives the JAX tree and an upstream state dict loads directly.
-Not yet ported: relative-position and causal temporal attention, image
-cross-attention and `tempspatial_aware`.
+Not yet ported: image cross-attention (`use_image_attention`, the i2v model).
 """
 
 from __future__ import annotations
@@ -164,15 +167,18 @@ def _norm_act_conv(ch: int, conv: nn.Module, dropout_slot: bool) -> nn.Sequentia
 
 
 class TemporalConvBlock(nn.Module):
-    """4x (GN -> SiLU -> Conv3d(3,1,1)) plus identity; input [B, T, H, W, C]."""
+    """4x (GN -> SiLU -> Conv3d(3,1,1)) plus identity; input [B, T, H, W, C].
+    `spatial_aware` widens conv1 and conv2 to 3x3x3 (openaimodel3d.py:249-264)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, spatial_aware: bool = False):
         super().__init__()
-        conv = lambda: Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
-        self.conv1 = _norm_act_conv(channels, conv(), dropout_slot=False)
-        self.conv2 = _norm_act_conv(channels, conv(), dropout_slot=True)
-        self.conv3 = _norm_act_conv(channels, conv(), dropout_slot=True)
-        self.conv4 = _norm_act_conv(channels, conv(), dropout_slot=True)
+        temporal = lambda: Conv3d(channels, channels, (3, 1, 1), padding=(1, 0, 0))
+        wide = ((lambda: Conv3d(channels, channels, (3, 3, 3), padding=(1, 1, 1)))
+                if spatial_aware else temporal)
+        self.conv1 = _norm_act_conv(channels, wide(), dropout_slot=False)
+        self.conv2 = _norm_act_conv(channels, wide(), dropout_slot=True)
+        self.conv3 = _norm_act_conv(channels, temporal(), dropout_slot=True)
+        self.conv4 = _norm_act_conv(channels, temporal(), dropout_slot=True)
 
     def forward(self, x):
         return self.conv4(self.conv3(self.conv2(self.conv1(x)))) + x
@@ -182,7 +188,8 @@ class ResBlock(nn.Module):
     """Residual block with timestep embedding and temporal conv.
     Input [BT, H, W, C], emb [BT, E]."""
 
-    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, temporal_conv: bool):
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, temporal_conv: bool,
+                 tempspatial_aware: bool = False):
         super().__init__()
         self.in_layers = _norm_act_conv(in_ch, Conv2d(in_ch, out_ch, 3, padding=1),
                                         dropout_slot=False)
@@ -192,7 +199,7 @@ class ResBlock(nn.Module):
         self.skip_connection = (Conv2d(in_ch, out_ch, 1) if in_ch != out_ch
                                 else nn.Identity())
         if temporal_conv:
-            self.temopral_conv = TemporalConvBlock(out_ch)
+            self.temopral_conv = TemporalConvBlock(out_ch, tempspatial_aware)
         self.temporal_conv = temporal_conv
 
     def forward(self, x, emb, batch_size: int):
@@ -206,24 +213,52 @@ class ResBlock(nn.Module):
         return h
 
 
+class RelativePosition(nn.Module):
+    """Learned relative-position embedding table (attention.py:21-40)."""
+
+    def __init__(self, num_units: int, max_relative_position: int):
+        super().__init__()
+        self.max_relative_position = max_relative_position
+        self.embeddings_table = nn.Parameter(torch.empty(2 * max_relative_position + 1,
+                                                         num_units))
+        nn.init.xavier_uniform_(self.embeddings_table)
+
+    def forward(self, length_q: int, length_k: int) -> torch.Tensor:
+        """[length_q, length_k, num_units]: the row of each clipped k - q."""
+        m = self.max_relative_position
+        rq = torch.arange(length_q, device=self.embeddings_table.device)[:, None]
+        rk = torch.arange(length_k, device=self.embeddings_table.device)[None, :]
+        return self.embeddings_table[torch.clamp(rk - rq, -m, m) + m]
+
+
 class CrossAttention(nn.Module):
-    """Multi-head self / text-cross attention (attention.py:43-127)."""
+    """Multi-head self / text-cross attention (attention.py:43-127), with the
+    relative-position logits and output term (temporal) and, when it
+    self-attends, a causal mask. Those two take the plain path, as in the
+    reference, where they are XLA."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 context_dim: int | None = None):
+                 context_dim: int | None = None, relative_position: bool = False,
+                 temporal_length: int | None = None, causal: bool = False):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = query_dim if context_dim is None else context_dim
-        self.heads, self.dim_head = heads, dim_head
+        self.heads, self.dim_head, self.causal = heads, dim_head, causal
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(ctx_dim, inner, bias=False)
         self.to_v = nn.Linear(ctx_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim))
+        self.relative_position = relative_position
+        if relative_position:
+            self.relative_position_k = RelativePosition(dim_head, temporal_length)
+            self.relative_position_v = RelativePosition(dim_head, temporal_length)
 
     def forward(self, x, context=None):
         h, d = self.heads, self.dim_head
         out_proj = self.to_out[0]
-        if (context is None and h * d == x.shape[-1] == out_proj.out_features
+        causal = self.causal and context is None
+        plain_self = context is None and not causal and not self.relative_position
+        if (plain_self and h * d == x.shape[-1] == out_proj.out_features
                 and use_fused_qkv(x, x.shape[1], h * d, h, d)):
             # the reference's opt-in fused branch (unet3d.py:326-340)
             return fused_qkv_attention(x, self.to_q.weight, self.to_k.weight,
@@ -232,11 +267,33 @@ class CrossAttention(nn.Module):
         ctx = x if context is None else context
         k, v = self.to_k(ctx), self.to_v(ctx)
         b, sq, sk = x.shape[0], x.shape[1], k.shape[1]
-        if context is None and use_packed_tiny(q, sq, sk, None, h * d, h):
+        if plain_self and use_packed_tiny(q, sq, sk, None, h * d, h):
             return self.to_out(packed_attention(q, k, v, h))
-        out = dot_product_attention(q.view(b, sq, h, d), k.view(b, sk, h, d),
-                                    v.view(b, sk, h, d))
+        qh, kh, vh = q.view(b, sq, h, d), k.view(b, sk, h, d), v.view(b, sk, h, d)
+        bias = None
+        if causal:
+            keep = torch.ones((sq, sk), dtype=torch.bool, device=x.device).tril()
+            bias = torch.zeros((sq, sk), device=x.device).masked_fill(~keep, -torch.inf)
+        if self.relative_position:
+            out = self._relative_attention(qh, kh, vh, bias)
+        else:
+            out = dot_product_attention(qh, kh, vh, bias=bias)
         return self.to_out(out.reshape(b, sq, h * d))
+
+    def _relative_attention(self, q, k, v, bias):
+        """softmax(q k^T s + q rel_k^T s + bias) (v + rel_v), fp32 logits
+        (unet3d.py:373-393, attention.py:94-113)."""
+        sq, sk = q.shape[1], k.shape[1]
+        rel_k = self.relative_position_k(sq, sk).float()
+        rel_v = self.relative_position_v(sq, sk).float()
+        scale = self.dim_head ** -0.5
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+        logits = logits + torch.einsum("bqhd,qkd->bhqk", q.float(), rel_k) * scale
+        if bias is not None:
+            logits = logits + bias
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+        return out + torch.einsum("bhqk,qkd->bqhd", probs, rel_v).to(out.dtype)
 
 
 class GEGLU(nn.Module):
@@ -263,13 +320,19 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn (or second self-attn) -> GEGLU FF, pre-norm."""
+    """self-attn -> cross-attn (or second self-attn) -> GEGLU FF, pre-norm.
+    A causal block masks attn1 and, when it has no context, attn2 too
+    (attention.py:206-218 passes the mask to both and then drops the context)."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int | None):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int | None,
+                 relative_position: bool = False, temporal_length: int | None = None,
+                 causal: bool = False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, heads, dim_head)
+        rel = dict(relative_position=relative_position, temporal_length=temporal_length)
+        self.attn1 = CrossAttention(dim, heads, dim_head, causal=causal, **rel)
         self.ff = FeedForward(dim)
-        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim=context_dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim=context_dim,
+                                    causal=causal, **rel)
         self.norm1 = LayerNorm32(dim)
         self.norm2 = LayerNorm32(dim)
         self.norm3 = LayerNorm32(dim)
@@ -302,25 +365,37 @@ class SpatialTransformer(nn.Module):
 
 class TemporalTransformer(nn.Module):
     """Transformer over the T frames of each pixel; input [B, T, H, W, C].
-    only_self_att (the shipped config): attn2 is a second self-attention."""
+    only_self_att (the shipped config): attn2 is a second self-attention;
+    otherwise it attends to the context of the row's first frame."""
 
     def __init__(self, ch: int, heads: int, dim_head: int, depth: int,
-                 use_linear: bool = True):
+                 use_linear: bool = True, only_self_att: bool = True,
+                 context_dim: int | None = None, relative_position: bool = False,
+                 temporal_length: int | None = None, causal: bool = False):
         super().__init__()
         inner = heads * dim_head
         proj = nn.Linear if use_linear else Conv1x1AsLinear
+        self.only_self_att = only_self_att
         self.norm = GroupNorm32(32, ch, eps=1e-6)
         self.proj_in = proj(ch, inner)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, heads, dim_head, None) for _ in range(depth))
+            BasicTransformerBlock(inner, heads, dim_head, None if only_self_att else context_dim,
+                                  relative_position, temporal_length, causal)
+            for _ in range(depth))
         self.proj_out = proj(inner, ch)
 
-    def forward(self, x):
+    def forward(self, x, context=None):
+        """context: [B*T, L, D] per-frame context (ignored with only_self_att)."""
         b, t, hh, ww, c = x.shape
         h = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * hh * ww, t, c)
         h = self.proj_in(h)
+        ctx = None
+        if not self.only_self_att and context is not None:
+            # the first frame's context, repeated for each pixel (attention.py:355-363)
+            ctx = context.reshape((b, t) + tuple(context.shape[1:]))[:, 0]
+            ctx = ctx.repeat_interleave(hh * ww, dim=0)
         for block in self.transformer_blocks:
-            h = block(h)
+            h = block(h, context=ctx)
         h = self.proj_out(h).reshape(b, hh, ww, t, c).permute(0, 3, 1, 2, 4)
         return h + x
 
@@ -358,13 +433,10 @@ class UNet3D(nn.Module):
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        unsupported = [name for name in ("use_relative_position", "use_causal_attention",
-                                         "use_image_attention", "tempspatial_aware")
-                       if getattr(cfg, name)]
-        if not cfg.temporal_selfatt_only:
-            unsupported.append("temporal_selfatt_only=False")
-        if unsupported:
-            raise NotImplementedError(f"UNet3D options not ported yet: {unsupported}")
+        if cfg.use_image_attention:
+            raise NotImplementedError(
+                "UNet3D use_image_attention (the i2v model) is not ported yet "
+                "(ROADMAP Queue 1 item 5)")
         self.cfg = cfg
         mc, ted = cfg.model_channels, cfg.time_embed_dim
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
@@ -375,9 +447,8 @@ class UNet3D(nn.Module):
         self.input_blocks = nn.ModuleList(
             nn.ModuleList(self._layer(s) for s in block) for block in in_plan)
         if cfg.addition_attention:
-            self.init_attn = nn.ModuleList([TemporalTransformer(
-                mc, 8, cfg.num_head_channels, cfg.temporal_transformer_depth,
-                use_linear=False)])
+            self.init_attn = nn.ModuleList([self._temporal(mc, 8, cfg.num_head_channels,
+                                                           use_linear=False)])
         self.middle_block = nn.ModuleList(self._layer(s) for s in mid_plan)
         self.output_blocks = nn.ModuleList(
             nn.ModuleList(self._layer(s) for s in block) for block in out_plan)
@@ -390,29 +461,39 @@ class UNet3D(nn.Module):
             return Conv2d(spec["in_ch"], spec["out_ch"], 3, padding=1)
         if kind == "res":
             return ResBlock(spec["in_ch"], spec["out_ch"], cfg.time_embed_dim,
-                            cfg.temporal_conv)
+                            cfg.temporal_conv, cfg.tempspatial_aware)
         if kind == "spatial":
             return SpatialTransformer(spec["out_ch"], spec["heads"], spec["dim_head"],
                                       cfg.transformer_depth, cfg.context_dim)
         if kind == "temporal":
-            return TemporalTransformer(spec["out_ch"], spec["heads"], spec["dim_head"],
-                                       cfg.temporal_transformer_depth)
+            return self._temporal(spec["out_ch"], spec["heads"], spec["dim_head"])
         if kind == "down":
             return Downsample(spec["out_ch"])
         if kind == "up":
             return Upsample(spec["out_ch"])
         raise ValueError(kind)
 
+    def _temporal(self, ch: int, heads: int, dim_head: int,
+                  use_linear: bool = True) -> TemporalTransformer:
+        cfg = self.cfg
+        return TemporalTransformer(
+            ch, heads, dim_head, cfg.temporal_transformer_depth, use_linear=use_linear,
+            only_self_att=cfg.temporal_selfatt_only, context_dim=cfg.context_dim,
+            relative_position=cfg.use_relative_position,
+            temporal_length=cfg.temporal_length, causal=cfg.use_causal_attention)
+
     @staticmethod
-    def _run_block(layers, h, emb, context, batch_size: int):
+    def _run_block(layers, h, emb, context, batch_size: int, no_temporal_attn: bool):
         for layer in layers:
             if isinstance(layer, ResBlock):
                 h = layer(h, emb, batch_size)
             elif isinstance(layer, SpatialTransformer):
                 h = layer(h, context)
             elif isinstance(layer, TemporalTransformer):
+                if no_temporal_attn:
+                    continue
                 bt, hh, ww, c = h.shape
-                v = layer(h.reshape(batch_size, bt // batch_size, hh, ww, c))
+                v = layer(h.reshape(batch_size, bt // batch_size, hh, ww, c), context)
                 h = v.reshape(bt, hh, ww, c)
             else:
                 h = layer(h)
@@ -422,7 +503,11 @@ class UNet3D(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.time_embed[0].weight.dtype
 
-    def forward(self, x, timesteps, context, fps=16):
+    def forward(self, x, timesteps, context, fps=16, no_temporal_attn: bool = False):
+        """no_temporal_attn skips every temporal transformer, the init one
+        included (the image branch of temporal guidance, unet3d.py:660-687).
+        context None (the context-free conditioning modes): the spatial
+        cross-attention self-attends."""
         cfg = self.cfg
         b, t, hh, ww, _ = x.shape
         if timesteps.ndim != 2:
@@ -439,14 +524,15 @@ class UNet3D(nn.Module):
         ctx = None if context is None else context.repeat_interleave(t, dim=0).to(dtype)
 
         h = x.reshape(b * t, hh, ww, x.shape[-1]).to(dtype)
+        nta = no_temporal_attn
         hs = []
         for i, block in enumerate(self.input_blocks):
-            h = self._run_block(block, h, emb, ctx, b)
+            h = self._run_block(block, h, emb, ctx, b, nta)
             if i == 0 and cfg.addition_attention:
-                h = self._run_block(self.init_attn, h, emb, ctx, b)
+                h = self._run_block(self.init_attn, h, emb, ctx, b, nta)
             hs.append(h)
-        h = self._run_block(self.middle_block, h, emb, ctx, b)
+        h = self._run_block(self.middle_block, h, emb, ctx, b, nta)
         for block in self.output_blocks:
-            h = self._run_block(block, torch.cat([h, hs.pop()], dim=-1), emb, ctx, b)
+            h = self._run_block(block, torch.cat([h, hs.pop()], dim=-1), emb, ctx, b, nta)
         h = self.out(h)
         return h.reshape(b, t, hh, ww, cfg.out_channels).to(x.dtype)

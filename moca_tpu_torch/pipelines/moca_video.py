@@ -1,7 +1,7 @@
 """MoCA-Video pipeline: base sample or real video -> FIFO diagonal queue ->
 per-step concept injection -> batched head decode.
 
-Port of moca_tpu/pipelines/moca_video.py for one prompt:
+Port of moca_tpu/pipelines/moca_video.py:
   * conditioning with the `conditioned_prompt` token concat (:287-300) and,
     with `multiprompts`, one context per scene switched at frame boundaries
     (:303-313, 357-359; funcs.py:375-468);
@@ -19,8 +19,14 @@ Port of moca_tpu/pipelines/moca_video.py for one prompt:
     precedence over a provider, as in the reference;
   * mid-run snapshots `fifo_state.npz` every `checkpoint_every` iterations
     (:372-431), and the batched head decode with a padded final flush
-    (:419-439), `frame_callback` and `viz`.
-Not yet ported: B > 1 prompts and the device mesh.
+    (:419-439), `frame_callback` and `viz`;
+  * B > 1 prompts (:227-300): the B streams share one queue [B, Q, h, w, C],
+    one U-Net batch of 2*R*B rows an iteration and the noise (a draw is
+    [1, ...] broadcast over B), so stream b equals a B=1 run of prompt b with
+    the same noise; the base-latent cache holds the B batch. Masks, DAVIS,
+    multiprompts, a provider and viz carry per-stream host state and need
+    B = 1, as in the reference.
+Not yet ported: the device mesh.
 
 Noise: every draw goes through `normal(tag, shape)` (sampling/ddim.py):
 ("base", ...) for the base sample, ("queue",) for the queue and
@@ -59,7 +65,7 @@ import torch
 
 from moca_tpu_torch.io.segmentation import latent_to_uint8_frame
 from moca_tpu_torch.models.latent_diffusion import LatentDiffusion
-from moca_tpu_torch.pipelines.t2v import T2VPipeline
+from moca_tpu_torch.pipelines.t2v import T2VPipeline, record_stage
 from moca_tpu_torch.sampling.ddim import GeneratorNormal, Normal, make_cfg_eps_fn
 from moca_tpu_torch.sampling.fifo import (
     FIFOPlan, advance_prompt_index, fifo_step, make_fifo_plan, prepare_queue,
@@ -89,6 +95,7 @@ class MoCAVideoPipeline:
     decode_batch: int = 8             # head frames per batched VAE call
     checkpoint_every: int = 0         # snapshot every N iterations; 0 = off
     tail_mode: str = "freeinit"       # funcs.py:86-99 | funcs_mp.py:39-46
+    uncond_type: str = "empty_seq"    # ddpm3d.py:397 empty_seq | zero_embed
     seg_async: bool = True            # open vocab: provider under the next iteration
 
     def __post_init__(self):
@@ -98,17 +105,14 @@ class MoCAVideoPipeline:
         self.plan: FIFOPlan = make_fifo_plan(self.sch.ddim_timesteps_np, self.video_length,
                                              self.num_partitions, self.lookahead_denoising)
         self.base = T2VPipeline(self.model, self.sch, self.tokenizer,
-                                guidance_scale=self.guidance_scale, fps=self.fps)
+                                guidance_scale=self.guidance_scale, fps=self.fps,
+                                uncond_type=self.uncond_type)
         self.timings: dict = {}
 
     def _stage(self, name: str, t0: float, sync: bool = True) -> float:
         """Add the time since t0 to stage `name` (device work included
         unless `sync` is off)."""
-        if sync and self.model.device.type == "cuda":
-            torch.cuda.synchronize(self.model.device)
-        now = time.perf_counter()
-        self.timings[name] = self.timings.get(name, 0.0) + now - t0
-        return now
+        return record_stage(self.timings, name, t0, self.model.device, sync)
 
     def _num_low_t_slots(self) -> int:
         """Queue slots with t <= inject_threshold (a prefix: the queue's
@@ -138,19 +142,19 @@ class MoCAVideoPipeline:
         """[K, h, w, 4] head latents -> [K, H, W, 3] frames in [-1, 1]."""
         return torch.clamp(self.model.decode_single(heads), -1.0, 1.0)
 
-    def _base_latents(self, prompt: str, normal: Normal, hw: Tuple[int, int],
+    def _base_latents(self, prompts: List[str], normal: Normal, hw: Tuple[int, int],
                       latents_dir: Optional[str]) -> torch.Tensor:
-        """The base DDIM sample, skipped when `latents_dir` holds its cache
-        (videocrafter_main.py:201-209)."""
+        """The base DDIM sample [B, T, h, w, 4] of the B prompts, skipped when
+        `latents_dir` holds a cache of B rows (videocrafter_main.py:201-209)."""
         cache = None
         if latents_dir:
             os.makedirs(latents_dir, exist_ok=True)
             cache = os.path.join(latents_dir, f"{self.num_inference_steps}.npz")
             if os.path.exists(cache):
                 cached = np.load(cache)["latents"]
-                if cached.shape[0] == 1:
+                if cached.shape[0] == len(prompts):
                     return torch.as_tensor(cached, device=self.model.device)
-        latents, x_T = self.base.sample_latents(prompt, normal, latent_shape=hw + (4,),
+        latents, x_T = self.base.sample_latents(prompts, normal, latent_shape=hw + (4,),
                                                 frames=self.video_length)
         if cache:
             np.savez(cache, latents=latents.cpu().numpy(), x_T=x_T.cpu().numpy())
@@ -197,7 +201,7 @@ class MoCAVideoPipeline:
         return t
 
     @torch.inference_mode()
-    def __call__(self, prompt: str, seed: int = 321, normal: Optional[Normal] = None,
+    def __call__(self, prompt, seed: int = 321, normal: Optional[Normal] = None,
                  cond_image: Optional[np.ndarray] = None,
                  conditioned_prompt: Optional[str] = None, gamma: Optional[float] = None,
                  height: int = 320, width: int = 512,
@@ -206,10 +210,13 @@ class MoCAVideoPipeline:
                  multiprompts: Optional[Sequence[Tuple[str, int]]] = None,
                  frame_callback: Optional[Callable[[int, np.ndarray], None]] = None,
                  mask_provider: Optional[Callable] = None, target: Optional[str] = None,
-                 viz: Optional[object] = None) -> List[np.ndarray]:
+                 viz: Optional[object] = None):
         """Returns the frames as [H, W, 3] float32 arrays in [-1, 1]
         (new_video_length + S - f of them, or the scenes' total + S - f with
-        multiprompts, like the reference's loop).
+        multiprompts, like the reference's loop); for a sequence of B > 1
+        prompts, a list of B such frame lists (frame_callback sees the flat
+        index, iteration-major and prompt-minor). cond_image and gamma are
+        shared by the B streams.
 
         cond_image: [h, w, C] latent-resolution concept image. DAVIS mode:
         clean_latents [1, T0, h, w, 4] encoded frames (skip the base sample),
@@ -219,21 +226,29 @@ class MoCAVideoPipeline:
         given. latents_dir: the base-latent cache and, with
         checkpoint_every, the snapshot a killed run resumes from. Noise from
         `normal` or, by default, a generator seeded with `seed`."""
-        if not isinstance(prompt, str):
-            raise NotImplementedError("batched prompts (B > 1) are not ported yet")
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        B = len(prompts)
+        if B > 1:
+            unsupported = [n for n, v in [
+                ("masks", masks), ("davis_frames", davis_frames),
+                ("clean_latents", clean_latents), ("multiprompts", multiprompts),
+                ("mask_provider", mask_provider), ("viz", viz)] if v is not None]
+            if unsupported:
+                raise ValueError(f"batched prompts (B={B}) do not support {unsupported}; "
+                                 "run those modes per-prompt (B=1)")
         device = self.model.device
         normal = GeneratorNormal(seed, device) if normal is None else normal
         self.timings = {}
         h, w = height // 8, width // 8
         t0 = time.perf_counter()
 
-        ctx = self.base.encode_prompts([prompt])
+        ctx = self.base.encode_prompts(prompts)
         ctx2 = None
         if conditioned_prompt:
             # videocrafter_main.py:210-211 + crossattn token concat (ddpm3d.py:710-712)
             ctx2 = self.base.encode_prompts([conditioned_prompt])
-            ctx = torch.cat([ctx, ctx2], dim=1)
-        uc = self.base.uncond_context(1) if self.guidance_scale != 1.0 else None
+            ctx = torch.cat([ctx, ctx2.expand((B,) + tuple(ctx2.shape[1:]))], dim=1)
+        uc = self.base.uncond_context(B, like=ctx) if self.guidance_scale != 1.0 else None
         if uc is not None and ctx.shape[1] != uc.shape[1]:
             uc = torch.cat([uc] * (ctx.shape[1] // uc.shape[1]), dim=1)
         embeds = lengths = None
@@ -247,7 +262,7 @@ class MoCAVideoPipeline:
         t0 = self._stage("encode", t0)
 
         if clean_latents is None:
-            clean_latents = self._base_latents(prompt, normal, (h, w), latents_dir)
+            clean_latents = self._base_latents(prompts, normal, (h, w), latents_dir)
         else:
             clean_latents = torch.as_tensor(clean_latents, dtype=torch.float32, device=device)
         t0 = self._stage("base_sample", t0)
@@ -258,7 +273,7 @@ class MoCAVideoPipeline:
 
         mask_queue = mask_tail = None
         seg_mode = mask_provider is not None and masks is None
-        seg_target, seg_counter, seg_pending = (target if target is not None else prompt), 0, None
+        seg_target, seg_counter, seg_pending = (target if target is not None else prompts[0]), 0, None
         if masks is not None:
             frame_idx, _ = queue_frame_indices(self.plan, masks.shape[0])
             masks = np.asarray(masks, np.float32)
@@ -273,7 +288,10 @@ class MoCAVideoPipeline:
         if multiprompts:
             total = int(lengths[-1]) + self.num_inference_steps - self.video_length
         frames_out: List[np.ndarray] = []
-        pending: List[torch.Tensor] = []
+        pending: List[torch.Tensor] = []  # head latents [B, h, w, 4] awaiting decode
+        # a flush decodes the smallest multiple of B rows >= decode_batch, the
+        # final one padded to it, so every decode has one shape
+        flush_rows = B * -(-self.decode_batch // B)
         j, start = 0, 0
         snapshot = None
         if latents_dir and self.checkpoint_every:
@@ -305,9 +323,9 @@ class MoCAVideoPipeline:
             t0 = self._stage("fifo_iteration", t0)
             batch = torch.cat(pending, dim=0)
             k = batch.shape[0]
-            if k < self.decode_batch:  # pad the final flush to the full batch shape
-                batch = torch.cat([batch, batch[-1:].expand(self.decode_batch - k,
-                                                            *batch.shape[1:])], dim=0)
+            if k < flush_rows:  # pad the final flush to the full batch shape
+                batch = torch.cat([batch, batch[-1:].expand(flush_rows - k, *batch.shape[1:])],
+                                  dim=0)
             decoded = self._decode_heads(batch)[:k].cpu().numpy()
             pending.clear()
             t0 = self._stage("decode", t0)
@@ -379,7 +397,7 @@ class MoCAVideoPipeline:
                     mask_queue, seg_counter = pulled(
                         sweep(self._to_host(pred_low), counter=seg_counter, lag=1))
                 pending.append(head)
-                if len(pending) >= self.decode_batch:
+                if len(pending) * B >= self.decode_batch:
                     t0 = flush(t0)
                 if snapshot and (i + 1) % self.checkpoint_every == 0:
                     t0 = checkpoint(i, t0)
@@ -390,4 +408,6 @@ class MoCAVideoPipeline:
         flush(t0)
         if snapshot and os.path.exists(snapshot):
             os.remove(snapshot)  # completed: drop the snapshot
-        return frames_out
+        if B == 1:
+            return frames_out
+        return [frames_out[b::B] for b in range(B)]

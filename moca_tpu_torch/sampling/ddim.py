@@ -1,9 +1,10 @@
 """Base DDIM sampler, classifier-free guidance and the port's noise source.
 
 Port of moca_tpu/sampling/ddim.py: `shared_normal`, `expand_context`,
-`make_cfg_eps_fn` (standard CFG, cond/uncond rows interleaved),
-`ddim_step_math` with `use_scale`, `ddim_sample` and `stochastic_encode`.
-The reference's `lax.scan` over steps is a Python loop.
+`make_cfg_eps_fn` (cond/uncond rows interleaved; the `uc_type` variants and
+temporal guidance), `ddim_step_math` with `use_scale`, `ddim_sample`,
+`stochastic_encode`, `ddim_decode` and `ddim_invert_frames`. The
+reference's `lax.scan` over steps is a Python loop.
 
 Noise. Every draw of the port goes through one callable
 `normal(tag, shape) -> float32 tensor`, where `tag` names the draw with its
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from moca_tpu_torch.schedule import DiffusionSchedule
@@ -52,24 +54,54 @@ def shared_normal(normal: Normal, tag: tuple, shape) -> torch.Tensor:
 
 
 def expand_context(context: torch.Tensor, rows: int) -> torch.Tensor:
-    """Per-row conditioning for a flat window batch: a [1, L, D] context
-    broadcasts over the rows (one prompt; B > 1 prompts are not ported yet)."""
-    if context.shape[0] == rows:
+    """Per-row conditioning for a flat window batch. FIFO flattens windows
+    row-major over (window, prompt) (fifo.fifo_step), so a [B, L, D]
+    context tiles prompt-minor to cover rows = R*B (`jnp.tile`, i.e.
+    `Tensor.repeat`); a [1, L, D] context broadcasts."""
+    bc = context.shape[0]
+    if bc == rows:
         return context
-    if context.shape[0] != 1:
-        raise ValueError(f"a {context.shape[0]}-row context for {rows} rows")
-    return context.expand((rows,) + tuple(context.shape[1:]))
+    if bc == 1:
+        return context.expand((rows,) + tuple(context.shape[1:]))
+    if rows % bc:
+        raise ValueError(f"a {bc}-row context for {rows} rows")
+    return context.repeat((rows // bc,) + (1,) * (context.ndim - 1))
 
 
 def make_cfg_eps_fn(unet_apply: Callable, context: torch.Tensor,
                     uncond_context: Optional[torch.Tensor], guidance_scale: float,
-                    fps=16) -> Callable:
+                    fps=16, uc_type: Optional[str] = None,
+                    temporal_guidance_scale: Optional[float] = None) -> Callable:
     """eps_fn(x, t_frames) with classifier-free guidance fused into one
-    U-Net call. Rows are INTERLEAVED: row 2i = cond_i, row 2i+1 = uncond_i."""
+    U-Net call. Rows are INTERLEAVED: row 2i = cond_i, row 2i+1 = uncond_i.
+
+    uc_type: None (standard CFG) | 'cfg_original' | 'cfg_ours'
+    (ddim.py:303-311). temporal_guidance_scale adds
+    s_t * (e_temporal - e_no_temporal_attn) from two more cond-only U-Net
+    calls, the second with the temporal transformers skipped
+    (`unet_apply(..., no_temporal_attn=True)`)."""
+    if uc_type not in (None, "cfg_original", "cfg_ours"):
+        raise NotImplementedError(uc_type)
+
+    def combine(e_c, e_u):
+        if uc_type is None:
+            return e_u + guidance_scale * (e_c - e_u)
+        if uc_type == "cfg_original":
+            return e_c + guidance_scale * (e_c - e_u)
+        return e_c + guidance_scale * (e_u - e_c)
+
+    def with_temporal_term(eps, x, t_frames):
+        if temporal_guidance_scale is None:
+            return eps
+        ctx = expand_context(context, x.shape[0])
+        e_t = unet_apply(x, t_frames, ctx, fps)
+        e_i = unet_apply(x, t_frames, ctx, fps, no_temporal_attn=True)
+        return eps + temporal_guidance_scale * (e_t - e_i)
 
     def eps_fn(x, t_frames):
         if uncond_context is None or guidance_scale == 1.0:
-            return unet_apply(x, t_frames, expand_context(context, x.shape[0]), fps)
+            eps = unet_apply(x, t_frames, expand_context(context, x.shape[0]), fps)
+            return with_temporal_term(eps, x, t_frames)
         b = x.shape[0]
         x2 = torch.stack([x, x], dim=1).reshape((2 * b,) + tuple(x.shape[1:]))
         t2 = torch.stack([t_frames, t_frames], dim=1).reshape(
@@ -78,8 +110,7 @@ def make_cfg_eps_fn(unet_apply: Callable, context: torch.Tensor,
                             expand_context(uncond_context, b)], dim=1)
         ctx2 = ctx2.reshape((2 * b,) + tuple(context.shape[1:]))
         eps = unet_apply(x2, t2, ctx2, fps).reshape((b, 2) + tuple(x.shape[1:]))
-        e_c, e_u = eps[:, 0], eps[:, 1]
-        return e_u + guidance_scale * (e_c - e_u)
+        return with_temporal_term(combine(eps[:, 0], eps[:, 1]), x, t_frames)
 
     return eps_fn
 
@@ -110,23 +141,31 @@ def ddim_step_math(sch: DiffusionSchedule, x: torch.Tensor, eps: torch.Tensor, i
     return x_prev, pred_x0
 
 
-def ddim_sample(eps_fn: Callable, sch: DiffusionSchedule, shape: Tuple[int, ...],
-                normal: Normal, tag: tuple = ("base",)):
-    """Full DDIM sampling from pure noise; shape [B, T, H, W, C].
-    Returns (x0_latent, x_T). Draws: tag+("init",) for x_T, tag+("step", i)
-    for step i's sigma-noise."""
-    b, t = shape[0], shape[1]
-    x_T = shared_normal(normal, tag + ("init",), shape)
-    steps = sch.num_ddim_steps
-    x = x_T
+def _ddim_steps(eps_fn: Callable, sch: DiffusionSchedule, x: torch.Tensor, steps: int,
+                normal: Normal, tag: tuple, temperature: float = 1.0) -> torch.Tensor:
+    """DDIM from schedule index steps-1 down to 0; step i draws
+    tag+("step", i), shared across the batch."""
+    b, t = x.shape[0], x.shape[1]
     for i in range(steps):
         index = steps - 1 - i
         t_frames = torch.full((b, t), int(sch.ddim_timesteps_np[index]),
                               dtype=torch.long, device=x.device)
         eps = eps_fn(x, t_frames)
-        noise = shared_normal(normal, tag + ("step", i), x.shape)
+        noise = temperature * shared_normal(normal, tag + ("step", i), x.shape)
         x, _ = ddim_step_math(sch, x, eps, index, noise)
-    return x, x_T
+    return x
+
+
+def ddim_sample(eps_fn: Callable, sch: DiffusionSchedule, shape: Tuple[int, ...],
+                normal: Normal, tag: tuple = ("base",),
+                x_T: Optional[torch.Tensor] = None, temperature: float = 1.0):
+    """Full DDIM sampling; shape [B, T, H, W, C]. Returns (x0_latent, x_T).
+    Draws: tag+("init",) for x_T unless it is given, tag+("step", i) for
+    step i's sigma-noise (scaled by `temperature`)."""
+    if x_T is None:
+        x_T = shared_normal(normal, tag + ("init",), shape)
+    x0 = _ddim_steps(eps_fn, sch, x_T, sch.num_ddim_steps, normal, tag, temperature)
+    return x0, x_T
 
 
 def stochastic_encode(sch: DiffusionSchedule, x0: torch.Tensor, index,
@@ -134,3 +173,27 @@ def stochastic_encode(sch: DiffusionSchedule, x0: torch.Tensor, index,
     """q(x_t | x_0) at DDIM step `index` (ddim.py:651-671)."""
     a = _gather(sch.ddim_alphas, index, x0)
     return torch.sqrt(a) * x0 + torch.sqrt(1.0 - a) * noise
+
+
+def ddim_decode(eps_fn: Callable, sch: DiffusionSchedule, x_latent: torch.Tensor,
+                t_start: int, normal: Normal, tag: tuple = ("decode",)) -> torch.Tensor:
+    """Partial DDIM sampling of a partially noised latent [B, T, h, w, C]
+    from schedule index t_start-1 down to 0 (`DDIMSampler.decode`,
+    ddim.py:673-692): `ddim_sample`'s steps over the first t_start
+    schedule entries. Step i draws tag+("step", i)."""
+    return _ddim_steps(eps_fn, sch, x_latent, t_start, normal, tag)
+
+
+def ddim_invert_frames(sch: DiffusionSchedule, clean_latents: torch.Tensor,
+                       normal: Normal, tag: tuple = ("invert",)) -> torch.Tensor:
+    """The reference's closed-form 'DDIM inversion' (ddim.py:972-1032):
+    schedule step i takes frame max(0, i-(S-T0)) of clean_latents
+    [B, T0, h, w, C] and noises it to level alpha_i, giving the
+    [B, S, h, w, C] diagonal stack that seeds a FIFO queue. One draw `tag`
+    of the whole stack (a fresh randn per step in the reference)."""
+    steps, t0 = sch.num_ddim_steps, clean_latents.shape[1]
+    frame_idx = torch.as_tensor(np.maximum(0, np.arange(steps) - (steps - t0)),
+                                device=clean_latents.device)
+    frames = clean_latents[:, frame_idx]
+    noise = normal(tag, tuple(frames.shape)).to(frames.dtype)
+    return stochastic_encode(sch, frames, np.arange(steps), noise)

@@ -44,7 +44,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_moca_tpu():
     port = ["moca_tpu_torch"] + sorted(
         m.name for m in pkgutil.walk_packages(moca_tpu_torch.__path__, "moca_tpu_torch."))
     assert {"moca_tpu_torch.pipelines.moca_video", "moca_tpu_torch.cli.main",
-            "moca_tpu_torch.io.davis", "moca_tpu_torch.config"} <= set(port)
+            "moca_tpu_torch.io.davis", "moca_tpu_torch.config",
+            "moca_tpu_torch.cli.inference", "moca_tpu_torch.pipelines.t2v",
+            "moca_tpu_torch.sampling.ddpm"} <= set(port)
     modules = port + _chip_smoke_imports() + ["chip_smoke"]
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}:\n"
