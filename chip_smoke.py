@@ -57,13 +57,32 @@ Phases, each failing loudly (non-zero exit, no result line):
   9. the T2V variants at full width, B=1, 10 DDIM steps: cfg_ours with
      temporal guidance (and one forward with no_temporal_attn, which must
      launch no K2), uncond_type='zero_embed', FreeInit with 2 iterations;
-     then DDPM (1000 steps) at 128x128 through the CLI;
- 10. MoCA with B=2 prompts at full width (32 U-Net rows an iteration), 16
-     new frames, then prompt 0 alone at the same length and seed, held to
+     then DDPM at 128x128 through the CLI, on a DDPM_STEPS-step schedule
+     (cut from 1000);
+ 10. MoCA with B=2 prompts at full width (32 U-Net rows an iteration), as
+     many new frames as phase 4 (cut from 16), then prompt 0 alone at the
+     same length and seed, held to
      stream 0 (BATCH_REL_TOL; the planted fault is stream 0 regrouped from
-     the frame list with the wrong stride).
+     the frame list with the wrong stride);
+ 11. the i2v model: phase 3's check on the U-Net with image cross-attention
+     at 77 + 16 context tokens (the planted fault: the image tokens zeroed);
+     then the full-width i2v model (the shipped U-Net with
+     use_image_attention, ViT-H/14 and the finegrained Resampler, random
+     weights from the seed; tower and Resampler fp32) through
+     moca_tpu_torch.cli.inference.main --mode i2v: 2 prompts, 2 PNGs made
+     with numpy, 512x320, f=16, guidance 12, 10 DDIM steps (cut from 50);
+     the tower's pooled and token outputs and the image tokens [1, 16, 1024]
+     on the card held to the fp32 CPU tower (VISION_REL_TOL);
+ 12. the evaluation sweep, moca_tpu_torch.cli.eval_sweep.main, on phase 4's
+     model: a 2-row prompt CSV, concept PNGs and random tower checkpoints
+     (OpenCLIP visual, {'alexnet', 'lpips'}, pytorch-i3d, the text tower
+     with its last block and text_projection) written under build/; the
+     CLIP text `embed`, AlexNet-LPIPS and I3D on the card held to fp32 on
+     the CPU, FVD of a set against itself and a shifted set; MoCA at f=16,
+     n=1 (16 steps, cut from the sweep's n=4), 16 new frames a row; the
+     metrics JSON must have the JAX sweep's keys.
 Phase 2 also holds K1 and K2 (and K3/K4, as the switches would send them)
-at every shape that phases 8-10 give them. Phases 4 and 6-10 set every
+at every shape that phases 8-12 give them. Phases 4 and 6-12 set every
 kernel's launch count to 0 just before each run and read it just after; every
 shape a kernel received must have been held to its plain version in phase 2.
 Every phase prints its seconds. Prints a JSON line of kernel measurements,
@@ -114,6 +133,10 @@ SWITCHES = {"MOCA_TPU_FA_FUSED_QKV": "1", "MOCA_TPU_FA_ONEPASS": "1"}
 # regrouped from the iteration-major frame list with the wrong stride.
 # Another prompt's reading is printed beside them.
 BATCH_REL_TOL = 2e-2
+# DDPM's schedule in phase 9, cut from the model's 1000 steps: at 128x128 a
+# step is host-bound (74-103 ms, PERF.md section 5), and the script must end
+# well inside its time limit.
+DDPM_STEPS = 250
 KERNEL_NAMES = ("flash_attention", "packed_attention", "fused_qkv_attention",
                 "flash_attention_onepass")
 
@@ -455,12 +478,16 @@ def main_path_shapes(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: in
     return k1, k2
 
 
-# The U-Net batches phases 8-10 add, as (rows, context tokens, latent h x w):
-# T2V --bs 4 (4 prompts x CFG), temporal guidance's cond-only calls (B=1),
-# DDPM at 128x128 (B=1 x CFG), and MoCA at B=2 (8 windows x CFG x 2 prompts
-# with the 154-token concept context; its base sample, 2 prompts x CFG).
+# The U-Net batches phases 8-12 add, as (rows, context tokens that reach the
+# text cross-attention, latent h x w): T2V --bs 4 (4 prompts x CFG),
+# temporal guidance's cond-only calls (B=1), DDPM at 128x128 (B=1 x CFG),
+# MoCA at B=2 (8 windows x CFG x 2 prompts with the 154-token concept
+# context; its base sample, 2 prompts x CFG), the i2v clip (B=1 x CFG; its
+# context is 77 text and 16 image tokens, and the image tokens go to the
+# plain path at Sk=16), and the sweep's MoCA at n=1 (2 windows x CFG with
+# the concept context).
 SLICE_RUNS = ((8, 77, (40, 64)), (1, 77, (40, 64)), (2, 77, (16, 16)), (32, 154, (40, 64)),
-              (4, 77, (40, 64)))
+              (4, 77, (40, 64)), (2, 77, (40, 64)), (4, 154, (40, 64)))
 
 
 def slice_shapes(known_k1, known_k2):
@@ -539,15 +566,18 @@ def phase_kernels(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int):
     return rows
 
 
-def check_unet_reference(label, ctx_len, switched, expect, **cfg_kw):
-    """The port's U-Net with the kernels (bf16, GPU) against its plain path
-    (fp32, CPU) on one small input (S=256 spatial, S=16 temporal); fails
-    unless every kernel named in `expect` launched. Returns the GPU
-    forward's launches, {kernel: {shape: n}}."""
+def rel_max(out, ref) -> float:
+    """max |out - ref| / max |ref| (tensors on one device)."""
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def reference_unet(ctx_len, **cfg_kw):
+    """Phase 3's small U-Net (fp32, CPU) with weights N(0, 0.05^2) from seed
+    0, and one input: x [1, 16, 16, 16, 4], timesteps [1, 16], a context of
+    `ctx_len` tokens of width 64."""
     import numpy as np
     import torch
     from moca_tpu_torch.models.unet3d import UNet3D, UNetConfig
-    from moca_tpu_torch.ops import flash_attention as fa
 
     cfg = UNetConfig(**{**UNET_REF_CFG, **cfg_kw})
     torch.manual_seed(0)
@@ -559,6 +589,18 @@ def check_unet_reference(label, ctx_len, switched, expect, **cfg_kw):
     x = torch.as_tensor(rng.standard_normal((1, 16, 16, 16, 4)), dtype=torch.float32)
     ts = torch.as_tensor(rng.integers(0, 1000, (1, 16)))
     ctx = torch.as_tensor(rng.standard_normal((1, ctx_len, 64)), dtype=torch.float32)
+    return ref_model, x, ts, ctx
+
+
+def check_unet_reference(label, ctx_len, switched, expect, **cfg_kw):
+    """The port's U-Net with the kernels (bf16, GPU) against its plain path
+    (fp32, CPU) on one small input (S=256 spatial, S=16 temporal); fails
+    unless every kernel named in `expect` launched. Returns the GPU
+    forward's launches, {kernel: {shape: n}}."""
+    import torch
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    ref_model, x, ts, ctx = reference_unet(ctx_len, **cfg_kw)
     with torch.inference_mode():
         ref = ref_model(x, ts, ctx, fps=10)
         gpu_model = ref_model.to("cuda", torch.bfloat16)
@@ -877,10 +919,11 @@ def captured_videos():
         inference.save_video_grid = real
 
 
-def run_batch_cli(pipe, argv, prompts, savedir):
+def run_batch_cli(pipe, argv, prompts, savedir, names=None):
     """moca_tpu_torch.cli.inference.main on a prompt file of `prompts` with
     `pipe` in place of the checkpoint's; returns ({mp4 name: [n_samples]
-    [T] frames}, seconds)."""
+    [T] frames}, seconds). `names`: the mp4s it must write (by default one
+    a prompt, named after it)."""
     import shutil
 
     from moca_tpu_torch.cli import inference
@@ -897,8 +940,7 @@ def run_batch_cli(pipe, argv, prompts, savedir):
         t0 = time.perf_counter()
         inference.main(args, pipe=pipe)
         seconds = time.perf_counter() - t0
-    for prompt in prompts:
-        name = prompt[:100].replace("/", "_") + ".mp4"
+    for name in names or [prompt[:100].replace("/", "_") + ".mp4" for prompt in prompts]:
         path = os.path.join(savedir, name)
         if name not in written or not os.path.getsize(path):
             fail(f"batch CLI {argv}: no video {path}")
@@ -960,7 +1002,8 @@ def phase_t2v_variants(model):
     """At full width, B=1, 10 DDIM steps: cfg_ours with temporal guidance
     (three U-Net calls a step; one forward with no_temporal_attn is shown to
     launch no K2), uncond_type='zero_embed', FreeInit with 2 iterations;
-    then DDPM (1000 steps) at 128x128 through the CLI with --ddim_steps 0.
+    then DDPM at 128x128 through the CLI with --ddim_steps 0, on a
+    DDPM_STEPS-step schedule.
     Returns {run: {kernel: {shape: launches}}}."""
     import torch
     from moca_tpu_torch.models.tokenizer import HashTokenizer
@@ -1001,20 +1044,21 @@ def phase_t2v_variants(model):
             if counts["packed_attention"] or not counts["flash_attention"]:
                 fail(f"a forward with no_temporal_attn launched {counts}")
             print(f"[t2v no_temporal_attn] one forward launches {json.dumps(counts)}", flush=True)
-    pipe = T2VPipeline.build(model, tok, num_steps=0, guidance_scale=12.0, fps=28)
+    pipe = T2VPipeline.build(model, tok, num_steps=0, guidance_scale=12.0, fps=28,
+                             num_timesteps=DDPM_STEPS)
     fa.reset_launch_counts()
     written, seconds = run_batch_cli(pipe, ["--ddim_steps", "0", "--height", "128",
                                             "--width", "128"], T2V_PROMPTS[:1],
                                      os.path.join("build", "smoke_t2v", "ddpm"))
     launched["t2v_ddpm"] = _launches("t2v ddpm", ("flash_attention", "packed_attention"))
     _check_clip("t2v ddpm", written[prompt + ".mp4"][0], (16, 128, 128, 3))
-    print(f"[t2v ddpm] 1000 DDPM steps at 128x128 through the CLI, [16, 128, 128, 3], all "
-          f"finite: {seconds:.2f} s; stages "
+    print(f"[t2v ddpm] {DDPM_STEPS} DDPM steps at 128x128 through the CLI, [16, 128, 128, 3], "
+          f"all finite: {seconds:.2f} s; stages "
           f"{json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}", flush=True)
     return launched
 
 
-def phase_moca_batched(model, num_partitions: int, new_video_length: int = 16):
+def phase_moca_batched(model, num_partitions: int, new_video_length: int):
     """MoCA with B=2 prompts at full width (32 U-Net rows an iteration), the
     concept image and conditioned prompt of phase 4, then prompt 0 alone at
     the same length and seed, held to stream 0. Returns {run: launches}."""
@@ -1061,6 +1105,391 @@ def phase_moca_batched(model, num_partitions: int, new_video_length: int = 16):
                          (np.stack(flat[:iters]), np.stack(single)),
                          "stream 0 regrouped with stride 1", BATCH_REL_TOL,
                          np.stack(streams[1]))
+    return launched
+
+
+# --- phase 11: i2v ---------------------------------------------------------
+
+I2V_IP_STD = 0.2  # to_k_ip / to_v_ip draw in the i2v U-Net check (see check_unet_i2v)
+# The fp32 vision tower and projector on the card against the same on the
+# CPU, relative to the largest value: both fp32, summed in another order
+# (1.0e-6 observed on an H100); a dropped layer or a wrong resize is off by
+# far more.
+VISION_REL_TOL = 1e-4
+# The fp32 metric towers (AlexNet, I3D) on the card against the CPU: 1.0e-5
+# and 1.8e-4 observed on an H100, the convolutions summed in another order.
+# The text tower runs in bf16 on the card and is held to UNET_REL_TOL.
+METRIC_REL_TOL = 2e-3
+
+
+def check_unet_i2v():
+    """Phase 3's check on the i2v U-Net (use_image_attention) at a context of
+    77 text and 16 image tokens: the bf16 forward with the kernels on the
+    card against the fp32 plain path on the CPU. With phase 3's N(0, 0.05^2)
+    weights the image tokens move the output by about 3 % of its largest
+    value, inside UNET_REL_TOL, so a forward that dropped them would pass;
+    to_k_ip / to_v_ip are drawn at I2V_IP_STD instead, the image branch then
+    moves the output past the limit, and the planted fault (the image
+    tokens zeroed on the card) must fail."""
+    import torch
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    ref_model, x, ts, ctx = reference_unet(77 + 16, use_image_attention=True)
+    zeroed = ctx.clone()
+    zeroed[:, 77:] = 0
+    with torch.inference_mode():
+        as_drawn = rel_max(ref_model(x, ts, zeroed, fps=10), ref_model(x, ts, ctx, fps=10))
+    with torch.no_grad():
+        for name, p in ref_model.named_parameters():
+            if "_ip." in name:
+                p.mul_(I2V_IP_STD / 0.05)
+    with torch.inference_mode():
+        ref = ref_model(x, ts, ctx, fps=10)
+        change = rel_max(ref_model(x, ts, zeroed, fps=10), ref)
+        gpu_model = ref_model.to("cuda", torch.bfloat16)
+        fa.reset_launch_counts()
+        out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
+        _launches("unet reference, i2v", ("flash_attention", "packed_attention"))
+        fault = gpu_model(x.cuda(), ts.cuda(), zeroed.cuda(), fps=10).float().cpu()
+    rel, fault_rel = rel_max(out, ref), rel_max(fault, ref)
+    print(f"[unet reference, i2v] image tokens zeroed move the fp32 output by {as_drawn:.3e} "
+          f"with to_k_ip/to_v_ip ~ N(0, 0.05^2), {change:.3e} at N(0, {I2V_IP_STD}^2); bf16 GPU "
+          f"(kernels) vs fp32 CPU (plain): relative max err {rel:.3e} (tol {UNET_REL_TOL}); "
+          f"planted fault (image tokens zeroed on the card) {fault_rel:.3e}", flush=True)
+    if not math.isfinite(rel) or rel > UNET_REL_TOL:
+        fail(f"i2v U-Net GPU vs CPU reference: relative max err {rel} > {UNET_REL_TOL}")
+    if not fault_rel > UNET_REL_TOL:
+        fail(f"i2v U-Net: the planted fault reads {fault_rel} <= {UNET_REL_TOL}")
+
+
+def write_pngs(root, n, hw, seed):
+    """n RGB PNGs of uniform noise from `seed`, {root}/fifo/{i}.png, through
+    the port's PNG writer (utils/visualization.py); returns their paths."""
+    import numpy as np
+    from moca_tpu_torch.utils.visualization import VisualizationSink
+
+    rng = np.random.default_rng(seed)
+    sink = VisualizationSink(root)
+    for i in range(n):
+        sink.frame(i, rng.integers(0, 256, hw + (3,), dtype=np.uint8))
+    return [os.path.join(root, "fifo", f"{i}.png") for i in range(n)]
+
+
+def hold_vision_tower(model, img):
+    """The vision tower's pooled and token outputs and the image tokens
+    (tower + Resampler), fp32 on the card, against the fp32 CPU copies on
+    one image; returns {output: relative max error}."""
+    import copy
+
+    import torch
+
+    cpu_vision = copy.deepcopy(model.vision).to("cpu")
+    cpu_proj = copy.deepcopy(model.image_proj).to("cpu")
+    errs = {}
+    with torch.inference_mode():
+        for output in ("pooled", "tokens"):
+            errs[output] = rel_max(model.vision(img, output=output).cpu(),
+                                   cpu_vision(img, output=output))
+        errs["image_tokens"] = rel_max(model.get_image_embeds(img).cpu(),
+                                       cpu_proj(cpu_vision(img, output="tokens")))
+    del cpu_vision, cpu_proj
+    bad = {k: v for k, v in errs.items() if not v <= VISION_REL_TOL}
+    if bad:
+        fail(f"i2v vision tower on the card vs the CPU: {bad} > {VISION_REL_TOL}")
+    return errs
+
+
+def phase_i2v():
+    """The i2v model at full width through the batch CLI's --mode i2v: the
+    U-Net of configs/inference_t2v_512_v2.0.yaml with use_image_attention,
+    the ViT-H/14 tower and the finegrained Resampler, random weights from
+    the seed (U-Net, VAE, text tower bf16; tower and Resampler fp32); two
+    prompts with two PNGs, 512x320, f=16, guidance 12, 10 DDIM steps.
+    Returns {run: {kernel: {shape: launches}}}."""
+    import shutil
+
+    import torch
+    from moca_tpu_torch.io.video import load_image_batch
+    from moca_tpu_torch.models.clip_text import CLIPTextConfig
+    from moca_tpu_torch.models.clip_vision import CLIPVisionConfig
+    from moca_tpu_torch.models.latent_diffusion import init_random_visual_model
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+    from moca_tpu_torch.models.unet3d import UNetConfig
+    from moca_tpu_torch.models.vae import VAEConfig
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.pipelines.t2v import T2VPipeline
+
+    check_unet_i2v()
+    launched = {}
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    model = init_random_visual_model(UNetConfig(use_image_attention=True), VAEConfig(),
+                                     CLIPTextConfig(), CLIPVisionConfig(), gen, device="cuda",
+                                     dtype=torch.bfloat16, finegrained=True)
+    count = lambda m: sum(p.numel() for p in m.parameters()) / 1e6
+    print(f"[i2v] model built in {time.perf_counter() - t0:.1f} s: U-Net {count(model.unet):.1f} M "
+          f"(bf16), vision tower {count(model.vision):.1f} M and Resampler "
+          f"{count(model.image_proj):.1f} M (fp32)", flush=True)
+    root = os.path.join("build", "smoke_i2v")
+    shutil.rmtree(root, ignore_errors=True)
+    # two conditioning images, 0.png and 1.png in prompt order, and a stray
+    # file the CLI's extension filter must skip
+    paths = write_pngs(root, 2, (480, 640), SEED)
+    cond_dir = os.path.dirname(paths[0])
+    with open(os.path.join(cond_dir, "notes.txt"), "w") as f:
+        f.write("not an image")
+    img = torch.as_tensor(load_image_batch(paths[:1], (320, 512))[..., :3], device="cuda")
+    errs = hold_vision_tower(model, img)
+    with torch.inference_mode():
+        tokens = model.get_image_embeds(img)
+        feats = model.vision(img, output="tokens")
+        tower_ms = cuda_ms(lambda: model.vision(img, output="tokens"), 5)
+        proj_ms = cuda_ms(lambda: model.image_proj(feats), 10)
+    if tuple(tokens.shape) != (1, 16, 1024) or not torch.isfinite(tokens).all():
+        fail(f"i2v image tokens: shape {tuple(tokens.shape)}, "
+             f"finite={bool(torch.isfinite(tokens).all())}")
+    print(f"[i2v] image tokens {list(tokens.shape)}, finite; fp32 card vs fp32 CPU, relative max "
+          f"err {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (tol "
+          f"{VISION_REL_TOL}); vision tower {tower_ms:.2f} ms, Resampler {proj_ms:.3f} ms an image "
+          f"(CUDA events)", flush=True)
+    pipe = T2VPipeline.build(model, HashTokenizer(), num_steps=10, guidance_scale=12.0, fps=28)
+    names = [f"{i}.mp4" for i in range(len(paths))]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    written, seconds = run_batch_cli(
+        pipe, ["--mode", "i2v", "--cond_input", cond_dir, "--ddim_steps", "10"],
+        T2V_PROMPTS[:2], os.path.join(root, "out"), names)
+    launched["i2v"] = _launches("i2v", ("flash_attention", "packed_attention"))
+    if sorted(written) != names:
+        fail(f"i2v CLI wrote {sorted(written)}, want {names}")
+    for name in names:
+        _check_clip(f"i2v {name}", written[name][0], (16, 320, 512, 3))
+    print(f"[i2v] {len(names)} clips [16, 320, 512, 3] named after the images, all finite; "
+          f"{seconds / len(names):.2f} s a clip through the CLI (10 DDIM steps, mp4 included); "
+          f"the last call's stages {json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}"
+          f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    return launched
+
+
+# --- phase 12: the evaluation sweep -------------------------------------------
+
+SWEEP_ROW_KEYS = {"prompt", "temporal_consistency", "frame_ssim_adjacent",
+                  "frame_psnr_adjacent", "sim_src_src", "sim_src_tgt", "sim_out_src",
+                  "sim_out_tgt", "cass", "rel_cass", "lpips_i", "lpips_t"}
+SWEEP_TOP_KEYS = {"_cass_convention", "_fvd_edited_vs_source"}  # scripts/eval_sweep.py:206-213
+
+
+def i3d_state_dict(seed):
+    """A pytorch-i3d InceptionI3d(400) state dict from `seed`: convolutions
+    N(0, 1/fan_in), BatchNorm scales and variances U(0.5, 1.5), shifts and
+    means N(0, 0.1^2); the logits unit with a bias."""
+    import numpy as np
+    import torch
+    from moca_tpu_torch.eval.i3d import _INCEPTION_CFG
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+
+    def unit(prefix, cin, cout, k=(1, 1, 1), bn=True):
+        sd[f"{prefix}.conv3d.weight"] = t(rng.standard_normal((cout, cin) + k)
+                                          / np.sqrt(cin * np.prod(k)))
+        if bn:
+            sd[f"{prefix}.bn.weight"] = t(rng.uniform(0.5, 1.5, cout))
+            sd[f"{prefix}.bn.bias"] = t(0.1 * rng.standard_normal(cout))
+            sd[f"{prefix}.bn.running_mean"] = t(0.1 * rng.standard_normal(cout))
+            sd[f"{prefix}.bn.running_var"] = t(rng.uniform(0.5, 1.5, cout))
+        else:
+            sd[f"{prefix}.conv3d.bias"] = t(0.1 * rng.standard_normal(cout))
+
+    unit("Conv3d_1a_7x7", 3, 64, (7, 7, 7))
+    unit("Conv3d_2b_1x1", 64, 64)
+    unit("Conv3d_2c_3x3", 64, 192, (3, 3, 3))
+    cin = 192
+    for name, (b0, b1a, b1b, b2a, b2b, b3b) in _INCEPTION_CFG.items():
+        unit(f"{name}.b0", cin, b0)
+        unit(f"{name}.b1a", cin, b1a)
+        unit(f"{name}.b1b", b1a, b1b, (3, 3, 3))
+        unit(f"{name}.b2a", cin, b2a)
+        unit(f"{name}.b2b", b2a, b2b, (3, 3, 3))
+        unit(f"{name}.b3b", cin, b3b)
+        cin = b0 + b1b + b2b + b3b
+    unit("logits", cin, 400, bn=False)
+    return sd
+
+
+def lpips_state_dicts(seed):
+    """torchvision AlexNet features and LPIPS lin weights from `seed`."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    alex = {}
+    for i, (o, c, k) in {0: (64, 3, 11), 3: (192, 64, 5), 6: (384, 192, 3), 8: (256, 384, 3),
+                         10: (256, 256, 3)}.items():
+        alex[f"features.{i}.weight"] = t(rng.standard_normal((o, c, k, k)) / np.sqrt(c * k * k))
+        alex[f"features.{i}.bias"] = t(0.1 * rng.standard_normal(o))
+    lins = {f"lin{i}.model.1.weight": t(np.abs(rng.standard_normal((1, ch, 1, 1))))
+            for i, ch in enumerate([64, 192, 384, 256, 256])}
+    return alex, lins
+
+
+def write_sweep_inputs(model, root):
+    """The sweep's inputs under `root`: a 2-row prompt CSV with its concept
+    PNGs, and its three tower checkpoints in the layouts it reads: the
+    OpenCLIP ViT-H/14 visual state dict (prefix '', fp32, random from the
+    seed), {'alexnet', 'lpips'} and pytorch-i3d's names; and the text tower
+    the CASS prompts go through (phase 4's, with a last block and
+    text_projection from the seed) under cond_stage_model.model."""
+    import torch
+    from moca_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+
+    os.makedirs(root)
+    rows = ["prompt,conditioned_object,conditioned_image_path,conditioned_prompt,gamma"]
+    pngs = write_pngs(os.path.join(root, "concepts"), 2, (256, 256), SEED + 1)
+    for path, prompt, concept in zip(pngs, (T2V_PROMPTS[0], T2V_PROMPTS[2]), ("dog", "cat")):
+        rows.append(f"{prompt},{concept},{path},a {concept},0.5")
+    with open(os.path.join(root, "prompts.csv"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.device("cuda"):
+        vision = CLIPVisionEncoder(CLIPVisionConfig())
+    with torch.no_grad():
+        for p in vision.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.02)
+    paths = {name: os.path.join(root, f"{name}.pt") for name in ("visual", "text", "lpips", "i3d")}
+    torch.save({k: v.cpu() for k, v in vision.state_dict().items()}, paths["visual"])
+    del vision
+    layers = model.clip_cfg.layers
+    text = {f"cond_stage_model.model.{k}": v.cpu() for k, v in model.clip.state_dict().items()}
+    last = f"transformer.resblocks.{layers - 2}."
+    for k, v in list(text.items()):  # the block conditioning stops before, drawn anew
+        if last in k:
+            text[k.replace(last, f"transformer.resblocks.{layers - 1}.")] = (
+                torch.randn(v.shape, generator=gen, device="cuda") * 0.02).to(v.dtype).cpu()
+    text["cond_stage_model.model.text_projection"] = (
+        torch.randn((model.clip_cfg.width,) * 2, generator=gen, device="cuda") * 0.02).cpu()
+    torch.save({"state_dict": text}, paths["text"])
+    alex, lins = lpips_state_dicts(SEED)
+    torch.save({"alexnet": alex, "lpips": lins}, paths["lpips"])
+    torch.save(i3d_state_dict(SEED), paths["i3d"])
+    return paths
+
+
+def hold_metric_towers(model, paths):
+    """Each metric tower on the card against its fp32 CPU version: the CLIP
+    text `embed` of the two prompts (bf16 on the card), AlexNet-LPIPS on two
+    320x512 frames, I3D logits on a 16-frame 224x224 clip; FVD of a set
+    against itself (~0) and against a shifted set (> 0). Prints each
+    tower's time on the card."""
+    import numpy as np
+    import torch
+    from moca_tpu_torch.eval.fvd import fvd
+    from moca_tpu_torch.eval.i3d import (
+        convert_i3d_weights, i3d_feature_fn, i3d_logits, i3d_preprocess, params_to)
+    from moca_tpu_torch.eval.metrics import convert_lpips_weights, lpips
+    from moca_tpu_torch.io.checkpoint import load_text_tower
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+
+    rng = np.random.default_rng(SEED)
+    errs, ms = {}, {}
+    tokens = torch.as_tensor(HashTokenizer()([T2V_PROMPTS[0], "a dog"]), dtype=torch.long)
+    with torch.inference_mode():
+        card = load_text_tower(paths["text"], model.clip_cfg, "cuda", torch.bfloat16)
+        cpu = load_text_tower(paths["text"], model.clip_cfg, "cpu", torch.float32)
+        tok = tokens.cuda()
+        errs["clip_text_embed"] = rel_max(card(tok, output="embed").cpu(),
+                                          cpu(tokens, output="embed"))
+        ms["clip_text_embed (2 prompts)"] = cuda_ms(lambda: card(tok, output="embed"), 10)
+        del card, cpu
+        blob = torch.load(paths["lpips"])
+        net, lins = convert_lpips_weights(blob["alexnet"], blob["lpips"])
+        frames = [rng.uniform(-1, 1, (1, 320, 512, 3)).astype(np.float32) for _ in range(2)]
+        ref = lpips(frames[0], frames[1], net, lins)
+        gpu_net = net.to("cuda")
+        a, b = (torch.as_tensor(f, device="cuda") for f in frames)
+        errs["lpips"] = rel_max(lpips(a, b, gpu_net, lins).cpu(), ref)
+        ms["lpips (1 frame pair)"] = cuda_ms(lambda: lpips(a, b, gpu_net, lins), 10)
+        params = convert_i3d_weights(torch.load(paths["i3d"]))
+        clip = rng.uniform(0, 1, (1, 16, 224, 224, 3)).astype(np.float32)
+        ref = i3d_logits(params, i3d_preprocess(clip))
+        gpu_params = params_to(params, "cuda")
+        x = i3d_preprocess(torch.as_tensor(clip, device="cuda"))
+        errs["i3d_logits"] = rel_max(i3d_logits(gpu_params, x).cpu(), ref)
+        ms["i3d (1 clip)"] = cuda_ms(lambda: i3d_logits(gpu_params, x), 5)
+    tol = {"clip_text_embed": UNET_REL_TOL}
+    bad = {k: v for k, v in errs.items() if not v <= tol.get(k, METRIC_REL_TOL)}
+    if bad:
+        fail(f"metric towers on the card vs fp32 on the CPU: {bad}")
+    feature_fn = i3d_feature_fn(params, "cuda")
+    videos = rng.uniform(0, 1, (4, 16, 224, 224, 3)).astype(np.float32)
+    same = fvd(videos, videos, feature_fn, batch_size=2)
+    shifted = fvd(videos, np.clip(videos + 0.25, 0, 1), feature_fn, batch_size=2)
+    if not (shifted > 0 and abs(same) <= 1e-6 * shifted):
+        fail(f"FVD: a set against itself {same}, against a shifted set {shifted}")
+    print(f"[eval towers] card vs fp32 CPU, relative max err "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} (tol: text "
+          f"{UNET_REL_TOL} in bf16, the rest {METRIC_REL_TOL}); FVD of 4 clips against "
+          f"themselves {same:.3e}, against the clips +0.25 {shifted:.4g}; times on the card "
+          f"{json.dumps({k: round(v, 3) for k, v in ms.items()})} ms", flush=True)
+
+
+def phase_eval_sweep(model):
+    """moca_tpu_torch.cli.eval_sweep.main on phase 4's model: 2 prompt rows,
+    the three metric towers from random checkpoints under build/, MoCA at
+    f=16, n=1 (16 steps, the sweep's own n=4 cut), 16 new frames, each
+    source clip from the base-latent cache. Returns {run: launches}."""
+    import shutil
+
+    import torch
+    from moca_tpu_torch.cli import eval_sweep
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
+
+    root = os.path.join("build", "smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_sweep_inputs(model, root)
+    print(f"[eval] inputs and tower checkpoints written in {time.perf_counter() - t0:.1f} s "
+          f"({json.dumps({k: round(os.path.getsize(p) / 2**20, 1) for k, p in paths.items()})}"
+          f" MiB)", flush=True)
+    hold_metric_towers(model, paths)
+    pipe = MoCAVideoPipeline(model, HashTokenizer(), video_length=16, num_partitions=1,
+                             new_video_length=16, guidance_scale=12.0, eta=1.0, fps=10)
+    out = os.path.join(root, "out")
+    args = eval_sweep.build_parser().parse_args([
+        "--ckpt_path", paths["text"], "--prompt_file", os.path.join(root, "prompts.csv"),
+        "--out_dir", out, "--new_video_length", "16", "--seed", str(SEED),
+        "--clip_vision_ckpt", paths["visual"], "--lpips_ckpt", paths["lpips"],
+        "--i3d_ckpt", paths["i3d"]])
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = eval_sweep.main(args, pipe=pipe)
+    seconds = time.perf_counter() - t0
+    launched = {"eval_sweep": _launches("eval sweep", ("flash_attention", "packed_attention"))}
+    with open(os.path.join(out, "metrics_rank0.json")) as f:
+        metrics = json.load(f)
+    rows = {k: v for k, v in metrics.items() if not k.startswith("_")}
+    top = set(metrics) - set(rows)
+    values = [v for row in rows.values() for k, v in row.items() if k != "prompt"]
+    fvd_value = metrics.get("_fvd_edited_vs_source")
+    if (summary["videos"] != 2 or sorted(rows) != ["0", "1"] or top != SWEEP_TOP_KEYS
+            or any(set(r) != SWEEP_ROW_KEYS for r in rows.values())
+            or not all(math.isfinite(v) for v in values + [fvd_value or math.nan])):
+        fail(f"eval sweep: summary {summary}, metrics {json.dumps(metrics)[:2000]}")
+    for name in ("000.mp4", "001.mp4"):
+        if not os.path.getsize(os.path.join(out, name)):
+            fail(f"eval sweep wrote no {name}")
+    print(f"[eval] the sweep: 2 videos in {seconds:.2f} s ({seconds / 2:.2f} s a video, "
+          f"towers and checkpoint loads included); metrics_rank0.json has the JAX sweep's keys "
+          f"(rows {sorted(SWEEP_ROW_KEYS)}, top {sorted(top)}); FVD(edited, source) "
+          f"{fvd_value:.4g}; row 0 "
+          f"{json.dumps({k: v for k, v in rows['0'].items() if k != 'prompt'})}; the last "
+          f"call's stages {json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
     return launched
 
 
@@ -1184,7 +1613,10 @@ def main(argv):
                                  new_video_length, num_partitions)
     shapes.update(timed("phase 8, batch T2V", phase_t2v_batch, model))
     shapes.update(timed("phase 9, T2V variants", phase_t2v_variants, model))
-    shapes.update(timed("phase 10, MoCA B=2", phase_moca_batched, model, num_partitions))
+    shapes.update(timed("phase 10, MoCA B=2", phase_moca_batched, model, num_partitions,
+                        new_video_length))
+    shapes.update(timed("phase 11, i2v", phase_i2v))
+    shapes.update(timed("phase 12, evaluation sweep", phase_eval_sweep, model))
 
     for run, by_kernel in shapes.items():
         for name, by_shape in by_kernel.items():

@@ -1,8 +1,8 @@
 """Batch text-to-video CLI (VideoCrafter2's scripts/evaluation/inference.py) on the port.
 
-Port of moca_tpu/cli/inference.py, base mode: the same flags and defaults,
-the same output layout (one mp4 per prompt, its --n_samples side by side),
-run by moca_tpu_torch on the GPU:
+Port of moca_tpu/cli/inference.py: the same flags and defaults, the same
+output layout (one mp4 per prompt, its --n_samples side by side), run by
+moca_tpu_torch on the GPU:
 
     python -m moca_tpu_torch.cli.inference --ckpt_path model.ckpt \
         --prompt_file prompts.txt --savedir results/t2v --bs 4
@@ -14,9 +14,15 @@ run by moca_tpu_torch on the GPU:
   * --n_samples samples a prompt, written side by side (funcs.py:600-612);
   * --freeinit_iters > 1: FreeInit re-sampling;
     --unconditional_guidance_scale_temporal: temporal guidance;
-    --ddim_steps <= 0: ancestral DDPM.
-Not yet ported: --mode i2v or an i2v config (ROADMAP Queue 1 item 5) and
---mesh (item 8); both raise NotImplementedError.
+    --ddim_steps <= 0: ancestral DDPM;
+  * --mode i2v: one conditioning image a prompt (.mp4/.png/.jpg in
+    --cond_image_dir, sorted), read at (--height, --width), RGB; its CLIP
+    image tokens (LatentVisualDiffusion.get_image_embeds) are appended to
+    the text context, and the mp4 is named after the image's stem
+    (inference.py:82-84,110-117). FreeInit samples without the image
+    tokens, as the JAX CLI does. --mode i2v or an i2v config loads the i2v
+    model; i2v runs one prompt a call (--bs 1).
+Not yet ported: --mesh (ROADMAP Queue 1 item 8); it raises NotImplementedError.
 
 Noise: `sample_normal` maps (seed, global prompt index, sample index) to
 the generator of one sampling call. A --bs round uses its first prompt's
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 
 from moca_tpu_torch.cli.main import PRECISIONS, load_model
-from moca_tpu_torch.io.video import save_video_grid
+from moca_tpu_torch.io.video import load_image_batch, save_video_grid
 from moca_tpu_torch.models.tokenizer import load_tokenizer
 from moca_tpu_torch.pipelines.t2v import T2VPipeline
 from moca_tpu_torch.sampling.ddim import GeneratorNormal
@@ -74,9 +80,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--freeinit_iters", type=int, default=0,
                    help="FreeInit noise-reinit iterations (0 = off)")
     p.add_argument("--mode", type=str, default="base", choices=["base", "i2v"],
-                   help="i2v: not ported yet")
+                   help="i2v: per-prompt conditioning images whose CLIP tokens are appended to "
+                        "the text context (inference.py:110-117)")
     p.add_argument("--cond_image_dir", "--cond_input", type=str, default=None,
-                   dest="cond_image_dir", help="i2v mode: conditioning images")
+                   dest="cond_image_dir",
+                   help="i2v mode: directory of images matched to prompts by sorted order "
+                        "(--cond_input is the reference's flag name, inference.py:38)")
     p.add_argument("--mesh", type=str, default=None, metavar="DP,FIFO",
                    help="multi-device sharding; not ported to GPUs yet")
     return p
@@ -95,8 +104,9 @@ def sample_normal(seed: int, prompt_index: int, sample_index: int, n_samples: in
 
 def load_pipeline(args, device=None) -> T2VPipeline:
     """The model of --config and --ckpt_path (cli.main.load_model) on
-    `device`, the GPU unless the caller names one, behind a T2VPipeline."""
-    model, cfg = load_model(args, device)
+    `device`, the GPU unless the caller names one, behind a T2VPipeline; the
+    i2v model with --mode i2v or an i2v config (moca_tpu/cli/inference.py:107-108)."""
+    model, cfg = load_model(args, device, visual=True if args.mode == "i2v" else None)
     return T2VPipeline.build(
         model, load_tokenizer(args.bpe_path), num_steps=args.ddim_steps, eta=args.ddim_eta,
         use_scale=cfg.diffusion.use_scale, guidance_scale=args.unconditional_guidance_scale,
@@ -108,19 +118,39 @@ def _host_frames(video: torch.Tensor):
     return list(video.float().cpu().numpy())
 
 
+COND_EXTENSIONS = (".mp4", ".png", ".jpg")  # get_filelist's '[mpj][pn][4gj]' (funcs.py:567-573)
+
+
+def load_cond_images(args, n_prompts: int):
+    """(images [n, H, W, 3] in [-1, 1], their stems): the conditioning files
+    of --cond_image_dir with a known extension, sorted, read at (--height,
+    --width) and cut to RGB (the reference's png/jpg path keeps RGBA and then
+    fails in its 3-channel normalize; DECISIONS.md). One image a prompt over
+    the whole prompt file (inference.py:83)."""
+    if not args.cond_image_dir:
+        raise ValueError("--cond_image_dir required for i2v")
+    files = sorted(f for f in os.listdir(args.cond_image_dir) if f.endswith(COND_EXTENSIONS))
+    images = load_image_batch([os.path.join(args.cond_image_dir, f) for f in files],
+                              (args.height, args.width))[..., :3]
+    if len(images) != n_prompts:
+        raise ValueError(f"Error: conditional input ({len(images)}) NOT match prompt "
+                         f"({n_prompts})!")
+    return images, [os.path.splitext(f)[0] for f in files]
+
+
 def main(args, pipe: T2VPipeline = None):
     """Write one mp4 per prompt of this process's shard into --savedir.
     `pipe` stands in for the pipeline `load_pipeline` builds from the files."""
     if args.mesh:
         raise NotImplementedError(
             "--mesh: multi-GPU sharding is not ported yet (ROADMAP Queue 1 item 8)")
-    if args.mode == "i2v":
-        raise NotImplementedError(
-            "--mode i2v: the i2v model is not ported yet (ROADMAP Queue 1 item 5)")
-    if args.bs > 1 and (args.freeinit_iters > 1 or args.n_samples != 1):
+    if args.bs > 1 and (args.mode != "base" or args.freeinit_iters > 1 or args.n_samples != 1):
         raise ValueError("--bs>1 supports plain base sampling")
     with open(args.prompt_file) as f:
         prompts = [line.strip() for line in f if line.strip()]
+    cond_images = cond_names = None
+    if args.mode == "i2v":
+        cond_images, cond_names = load_cond_images(args, len(prompts))
     pipe = load_pipeline(args) if pipe is None else pipe
     # contiguous shard per process (inference.py:71-77)
     per = -(-len(prompts) // args.num_processes)
@@ -145,16 +175,21 @@ def main(args, pipe: T2VPipeline = None):
 
     for i, prompt in enumerate(shard):
         t0 = time.perf_counter()
+        out_path, img_tokens = path(prompt), None
+        if cond_images is not None:  # global prompt index == image index
+            img_tokens = pipe.model.get_image_embeds(cond_images[first + i][None])
+            out_path = os.path.join(args.savedir, cond_names[first + i] + ".mp4")
         samples = []
         for s in range(args.n_samples):
             normal = sample_normal(args.seed, first + i, s, args.n_samples, device)
-            if args.freeinit_iters > 1:
+            if args.freeinit_iters > 1:  # without the image tokens, as the JAX CLI
                 video = pipe.sample_with_freeinit(prompt, normal=normal,
                                                   iterations=args.freeinit_iters, **size)
             else:
-                video = pipe(prompt, normal=normal, use_ddpm=args.ddim_steps <= 0, **size)
+                video = pipe(prompt, normal=normal, image_tokens=img_tokens,
+                             use_ddpm=args.ddim_steps <= 0, **size)
             samples.append(_host_frames(video))
-        save_video_grid(samples, path(prompt), fps=args.savefps)
+        save_video_grid(samples, out_path, fps=args.savefps)
         log.info("[%d/%d] %.1fs %s", i + 1, len(shard), time.perf_counter() - t0, prompt[:60])
 
 

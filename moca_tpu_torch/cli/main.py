@@ -15,6 +15,13 @@ Noise: --seed seeds the port's generator (sampling/ddim.py GeneratorNormal);
 prompt row idx draws from a generator seeded with seed + idx. `--mesh`
 (multi-GPU) is not ported yet.
 
+An i2v config (LatentVisualDiffusion) runs as the JAX CLI runs it: the
+MoCA path has no image input, so the model is the text-to-video bundle
+with the config's U-Net, whose image cross-attention (to_k_ip / to_v_ip,
+loaded from the checkpoint) attends to the context's tokens after the first
+77, there the conditioned prompt's; the checkpoint's vision tower and
+projector are skipped.
+
 Ref: videocrafter_main.py:235-276 (argparse), :66-232 (main).
 """
 
@@ -31,7 +38,8 @@ from moca_tpu_torch.io.checkpoint import load_checkpoint
 from moca_tpu_torch.io.davis import get_davis_prompt, load_davis_data
 from moca_tpu_torch.io.prompts import load_prompts
 from moca_tpu_torch.io.video import load_conditioning_image, save_video, tensor_to_uint8
-from moca_tpu_torch.models.latent_diffusion import LatentDiffusion
+from moca_tpu_torch.models.clip_vision import CLIPVisionConfig
+from moca_tpu_torch.models.latent_diffusion import LatentDiffusion, LatentVisualDiffusion
 from moca_tpu_torch.models.tokenizer import load_tokenizer
 from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
 from moca_tpu_torch.sampling.ddim import GeneratorNormal
@@ -111,12 +119,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def load_model(args, device=None):
+def load_model(args, device=None, visual: bool | None = False):
     """(LatentDiffusion from --config and --ckpt_path on `device`, the GPU
-    unless the caller names one, in --precision; its ModelConfig)."""
+    unless the caller names one, in --precision; its ModelConfig). `visual`:
+    the i2v LatentVisualDiffusion (ViT-H/14 tower, the config's projector),
+    whose image towers stay fp32 (moca_tpu/cli/inference.py:81-99); None: as
+    the config says (`is_i2v`)."""
     cfg = load_model_config(args.config)
-    if cfg.is_i2v:
-        raise NotImplementedError("the i2v model is not ported yet (ROADMAP Queue 1 item 5)")
+    visual = cfg.is_i2v if visual is None else visual
     if cfg.diffusion.conditioning_key != "crossattn":
         raise NotImplementedError("the port runs the text-to-video crossattn model only")
     if not os.path.exists(args.ckpt_path):
@@ -124,9 +134,15 @@ def load_model(args, device=None):
     device = resolve_device(device)
     log.info("loading checkpoint %s", args.ckpt_path)
     with torch.device(device):
-        model = LatentDiffusion(cfg.unet, cfg.vae, cfg.clip,
-                                scale_factor=cfg.diffusion.scale_factor)
+        if visual:
+            model = LatentVisualDiffusion(cfg.unet, cfg.vae, cfg.clip, CLIPVisionConfig(),
+                                          cfg.finegrained, scale_factor=cfg.diffusion.scale_factor)
+        else:
+            model = LatentDiffusion(cfg.unet, cfg.vae, cfg.clip,
+                                    scale_factor=cfg.diffusion.scale_factor)
     model.to(PRECISIONS[args.precision]).eval().requires_grad_(False)
+    if visual:
+        model.keep_image_towers_fp32()
     skipped = load_checkpoint(args.ckpt_path, model)
     log.info("skipped %d non-model checkpoint keys", len(skipped))
     return model, cfg

@@ -6,8 +6,9 @@ The same files drive the port: the known targets resolve to the port's
 `UNetConfig`, `VAEConfig`, `CLIPTextConfig` and `DiffusionParams`, with the
 reference's defaults for absent keys, and a vestigial or unknown encoder
 target is refused here. The parameter type is the caller's choice (the CLI's
-`--precision`), not the YAML's. U-Net options the port lacks raise when the
-`UNet3D` is built. PyYAML is imported inside `load_model_config`.
+`--precision`), not the YAML's. An i2v config (`is_i2v`) also names the
+image projector: the Resampler when `model.params.finegrained` is set, else
+ImageProjModel. PyYAML is imported inside `load_model_config`.
 """
 
 from __future__ import annotations
@@ -58,6 +59,9 @@ class ModelConfig:
     # i2v (LatentVisualDiffusion, ddpm3d.py:660-694): the YAML target says
     # LatentVisualDiffusion or has a cond_img_config
     is_i2v: bool = False
+    # i2v projector: the Resampler on the vision tower's tokens (True) or
+    # ImageProjModel on its pooled embedding
+    finegrained: bool = False
 
 
 def _unet_from_yaml(p: Dict[str, Any]) -> UNetConfig:
@@ -167,4 +171,5 @@ def model_config_from_dict(raw: Dict[str, Any]) -> ModelConfig:
         _check_encoder_target(mp["cond_img_config"].get("target", ""), "cond_img_config")
     clip = _clip_from_yaml(mp["cond_stage_config"].get("params", {}))
     is_i2v = "LatentVisualDiffusion" in raw["model"].get("target", "") or "cond_img_config" in mp
-    return ModelConfig(diffusion=diffusion, unet=unet, vae=vae, clip=clip, is_i2v=is_i2v)
+    return ModelConfig(diffusion=diffusion, unet=unet, vae=vae, clip=clip, is_i2v=is_i2v,
+                       finegrained=mp.get("finegrained", False))

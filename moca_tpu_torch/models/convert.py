@@ -12,7 +12,9 @@ modules carry). Layout transforms, inverted:
     GroupNorm_0 / LayerNorm_0 {scale, bias} -> {weight, bias}
 
 The U-Net walk uses the port's own copy of `unet_plan`, the same walk the
-reference converter and model use.
+reference converter and model use. `clip_vision_from_jax` and
+`image_proj_from_jax` invert `convert_clip_vision` and `convert_image_proj`
+(the i2v model's vision tower and projector).
 """
 
 from __future__ import annotations
@@ -88,6 +90,9 @@ def _attn(sd, prefix, p):
     for name in ("relative_position_k", "relative_position_v"):  # convert.py:113-117
         if name in p:
             _put(sd, f"{prefix}.{name}", embeddings_table=p[name]["embeddings_table"])
+    for name in ("to_k_ip", "to_v_ip"):  # image cross-attention, convert.py:118-120
+        if name in p:
+            _linear(sd, f"{prefix}.{name}", p[name])
 
 
 def _transformer(sd, prefix, p, depth, conv_proj=False):
@@ -216,13 +221,9 @@ def vae_from_jax(params, cfg: VAEConfig) -> StateDict:
 # CLIP text tower
 # ---------------------------------------------------------------------------
 
-def clip_from_jax(params, cfg: CLIPTextConfig) -> StateDict:
-    """JAX CLIPTextEncoder params -> the port's state_dict."""
-    p = _params(params)
-    sd: StateDict = {"token_embedding.weight": _t(p["token_embedding"]),
-                     "positional_embedding": _t(p["positional_embedding"])}
-    _norm(sd, "ln_final", p["ln_final"])
-    for i in range(cfg.layers - (1 if cfg.penultimate else 0)):
+def _resblocks(sd, p, layers: int):
+    """OpenCLIP resblocks 0..layers-1 (the text and the vision tower's)."""
+    for i in range(layers):
         prefix, q = f"transformer.resblocks.{i}", p[f"resblock{i}"]
         _norm(sd, f"{prefix}.ln_1", q["ln_1"])
         _norm(sd, f"{prefix}.ln_2", q["ln_2"])
@@ -231,4 +232,59 @@ def clip_from_jax(params, cfg: CLIPTextConfig) -> StateDict:
         _linear(sd, f"{prefix}.attn.out_proj", q["out_proj"])
         _linear(sd, f"{prefix}.mlp.c_fc", q["c_fc"])
         _linear(sd, f"{prefix}.mlp.c_proj", q["c_proj"])
+
+
+def clip_from_jax(params, cfg: CLIPTextConfig, full: bool = False) -> StateDict:
+    """JAX CLIPTextEncoder params -> the port's state_dict; `full` for the
+    whole tower and `text_projection` (CLIPTextEncoder(cfg, full=True), the
+    tree of convert_clip(full=True))."""
+    p = _params(params)
+    sd: StateDict = {"token_embedding.weight": _t(p["token_embedding"]),
+                     "positional_embedding": _t(p["positional_embedding"])}
+    _norm(sd, "ln_final", p["ln_final"])
+    if full:
+        sd["text_projection"] = _t(p["text_projection"])
+    _resblocks(sd, p, cfg.layers - (1 if cfg.penultimate and not full else 0))
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# i2v: CLIP vision tower and image projector
+# ---------------------------------------------------------------------------
+
+def clip_vision_from_jax(params, layers: int) -> StateDict:
+    """JAX CLIPVisionEncoder params -> the port's (OpenCLIP visual) state_dict."""
+    p = _params(params)
+    sd: StateDict = {name: _t(p[name]) for name in
+                     ("class_embedding", "positional_embedding", "proj")}
+    sd["conv1.weight"] = _t(np.asarray(p["patch"]["kernel"]).transpose(3, 2, 0, 1))
+    _norm(sd, "ln_pre", p["ln_pre"])
+    _norm(sd, "ln_post", p["ln_post"])
+    _resblocks(sd, p, layers)
+    return sd
+
+
+def image_proj_from_jax(params) -> StateDict:
+    """JAX ImageProjModel or Resampler params -> the port's state_dict."""
+    p = _params(params)
+    sd: StateDict = {}
+    if "proj" in p:  # ImageProjModel
+        _linear(sd, "proj", p["proj"])
+        _norm(sd, "norm", p["norm"])
+        return sd
+    sd["latents"] = _t(p["latents"])
+    _linear(sd, "proj_in", p["proj_in"])
+    _linear(sd, "proj_out", p["proj_out"])
+    _norm(sd, "norm_out", p["norm_out"])
+    i = 0
+    while f"layer{i}_attn" in p:
+        a, prefix = p[f"layer{i}_attn"], f"layers.{i}"
+        _norm(sd, f"{prefix}.0.norm1", a["norm1"])
+        _norm(sd, f"{prefix}.0.norm2", a["norm2"])
+        for name in ("to_q", "to_kv", "to_out"):
+            _linear(sd, f"{prefix}.0.{name}", a[name])
+        _norm(sd, f"{prefix}.1.0", p[f"layer{i}_ff_norm"])
+        _linear(sd, f"{prefix}.1.1", p[f"layer{i}_ff_in"])
+        _linear(sd, f"{prefix}.1.3", p[f"layer{i}_ff_out"])
+        i += 1
     return sd

@@ -1,11 +1,12 @@
 """LatentDiffusion bundle: U-Net + VAE + CLIP text encoder.
 
-Port of moca_tpu/models/latent_diffusion.py for the text-to-video model:
-the three towers as `nn.Module`s on one device, with `apply_unet`,
-`apply_model` (the DiffusionWrapper's 12 conditioning keys),
-`count_params`, `encode_tokens`, `encode_frames`, `encode_frame_moments`,
-`decode_latents` and `decode_single`. Video tensors are channels-last
-[B, T, H, W, C]. Not yet ported: the i2v `LatentVisualDiffusion`.
+Port of moca_tpu/models/latent_diffusion.py: the three towers as
+`nn.Module`s on one device, with `apply_unet`, `apply_model` (the
+DiffusionWrapper's 12 conditioning keys), `count_params`, `encode_tokens`,
+`encode_frames`, `encode_frame_moments`, `decode_latents` and
+`decode_single`; and the i2v model, `LatentVisualDiffusion`, which adds the
+CLIP vision tower and the image projector (`get_image_embeds`). Video
+tensors are channels-last [B, T, H, W, C].
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from torch import nn
 
 from moca_tpu_torch import resolve_device
 from moca_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
+from moca_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
+from moca_tpu_torch.models.ip_resampler import ImageProjModel, Resampler
 from moca_tpu_torch.models.unet3d import UNet3D, UNetConfig
 from moca_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from moca_tpu_torch.utils import distributions
@@ -165,6 +168,57 @@ class LatentDiffusion(nn.Module):
         return self.vae.decode(z_frame / self.scale_factor).float()
 
 
+class LatentVisualDiffusion(LatentDiffusion):
+    """The i2v model (ddpm3d.py:660-694): LatentDiffusion plus a frozen CLIP
+    vision tower (`vision`, checkpoint `embedder.model.visual.*`) and an
+    IP-Adapter projector (`image_proj`, checkpoint `image_proj_model.*`).
+    Image tokens are appended to the text context on the token axis; the
+    U-Net's image cross-attention (use_image_attention) splits them back out.
+
+    `finegrained`: the Resampler on the tower's tokens, else ImageProjModel
+    on its pooled embedding. The projector's sizes follow the configs, as in
+    the JAX package (the reference hardcodes the shipped towers' 1024/1280).
+    The tower and the projector compute in fp32 whatever the other towers'
+    type (`keep_image_towers_fp32`), as the reference builds them."""
+
+    def __init__(self, unet_cfg: UNetConfig, vae_cfg: VAEConfig, clip_cfg: CLIPTextConfig,
+                 vision_cfg: CLIPVisionConfig, finegrained: bool = False,
+                 scale_factor: float = 0.18215):
+        super().__init__(unet_cfg, vae_cfg, clip_cfg, scale_factor)
+        self.vision_cfg, self.finegrained = vision_cfg, finegrained
+        self.vision = CLIPVisionEncoder(vision_cfg)
+        if finegrained:
+            self.image_proj = Resampler(dim=vision_cfg.output_dim, depth=4, dim_head=64, heads=12,
+                                        num_queries=16, embedding_dim=vision_cfg.width,
+                                        output_dim=unet_cfg.context_dim)
+        else:
+            self.image_proj = ImageProjModel(cross_attention_dim=unet_cfg.context_dim,
+                                             clip_embeddings_dim=vision_cfg.output_dim,
+                                             clip_extra_context_tokens=4)
+
+    def keep_image_towers_fp32(self) -> "LatentVisualDiffusion":
+        """Back to fp32 for the vision tower and the projector after a
+        model-wide cast (the reference's fp32 embedder and projector)."""
+        self.vision.float()
+        self.image_proj.float()
+        return self
+
+    @torch.inference_mode()
+    def get_image_embeds(self, images) -> torch.Tensor:
+        """[B, H, W, 3] in [-1, 1] -> [B, N, context_dim] float32
+        cross-attention tokens (ddpm3d.py:689-694)."""
+        feats = self.vision(images, output="tokens" if self.finegrained else "pooled")
+        return self.image_proj(feats).float()
+
+
+def _fill_random(model: nn.Module, generator, device) -> None:
+    with torch.no_grad():
+        for p in model.parameters():
+            noise = torch.randn(p.shape, generator=generator, device=device,
+                                dtype=torch.float32)
+            p.copy_(noise * 0.02)
+
+
 def init_random_model(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
                       clip_cfg: CLIPTextConfig, generator: torch.Generator | None = None,
                       device=None, dtype: torch.dtype = torch.float32) -> LatentDiffusion:
@@ -178,9 +232,22 @@ def init_random_model(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
     with torch.device(device):
         model = LatentDiffusion(unet_cfg, vae_cfg, clip_cfg)
     model.to(dtype).eval().requires_grad_(False)
-    with torch.no_grad():
-        for p in model.parameters():
-            noise = torch.randn(p.shape, generator=generator, device=device,
-                                dtype=torch.float32)
-            p.copy_(noise * 0.02)
+    _fill_random(model, generator, device)
+    return model
+
+
+def init_random_visual_model(unet_cfg: UNetConfig, vae_cfg: VAEConfig,
+                             clip_cfg: CLIPTextConfig, vision_cfg: CLIPVisionConfig,
+                             generator: torch.Generator | None = None, device=None,
+                             dtype: torch.dtype = torch.float32,
+                             finegrained: bool = False) -> LatentVisualDiffusion:
+    """Random-weight i2v model, filled as `init_random_model`: the U-Net, VAE
+    and text tower in `dtype`, the vision tower and projector in fp32. Build
+    the U-Net with use_image_attention=True so that the image tokens reach
+    to_k_ip / to_v_ip."""
+    device = resolve_device(device)
+    with torch.device(device):
+        model = LatentVisualDiffusion(unet_cfg, vae_cfg, clip_cfg, vision_cfg, finegrained)
+    model.to(dtype).keep_image_towers_fp32().eval().requires_grad_(False)
+    _fill_random(model, generator, device)
     return model

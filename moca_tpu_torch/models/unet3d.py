@@ -7,7 +7,11 @@ temporal convolutions, the `addition_attention` init transformer and
 attention, `tempspatial_aware` temporal convolutions, temporal
 cross-attention to the first frame's context (`temporal_selfatt_only=False`),
 a context-free U-Net (`context_dim=None`: the spatial cross-attention
-self-attends) and `no_temporal_attn` in the forward.
+self-attends), `no_temporal_attn` in the forward, and the i2v model's image
+cross-attention (`use_image_attention`): the spatial transformers'
+cross-attention splits its context after the 77 text tokens and adds the
+attention to the image tokens, through `to_k_ip` / `to_v_ip`, to the text
+attention before `to_out` (attention.py:82-124).
 
 Layout: channels-last [B, T, H, W, C] at the public call, spatial layers on
 the flattened (B*T) frame axis, temporal layers on the flattened (B*H*W)
@@ -20,7 +24,6 @@ moca_tpu/models/convert.py `convert_unet` reads (e.g.
 `input_blocks.1.1.transformer_blocks.0.attn1.to_q`, including the
 `temopral_conv` spelling), so `convert_unet(model.state_dict(), cfg,
 prefix="")` gives the JAX tree and an upstream state dict loads directly.
-Not yet ported: image cross-attention (`use_image_attention`, the i2v model).
 """
 
 from __future__ import annotations
@@ -231,15 +234,23 @@ class RelativePosition(nn.Module):
         return self.embeddings_table[torch.clamp(rk - rq, -m, m) + m]
 
 
+TEXT_CONTEXT_LEN = 77  # text tokens ahead of the image tokens (attention.py:82-87)
+
+
 class CrossAttention(nn.Module):
     """Multi-head self / text-cross attention (attention.py:43-127), with the
     relative-position logits and output term (temporal) and, when it
     self-attends, a causal mask. Those two take the plain path, as in the
-    reference, where they are XLA."""
+    reference, where they are XLA. `img_cross_attention`: the context's
+    tokens after the first 77 are image tokens, attended through to_k_ip /
+    to_v_ip (Sk = 16 or 4: the plain path, XLA in the reference) and added to
+    the text attention (image_cross_attention_scale 1.0, the reference's
+    default, which no config changes)."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: int | None = None, relative_position: bool = False,
-                 temporal_length: int | None = None, causal: bool = False):
+                 temporal_length: int | None = None, causal: bool = False,
+                 img_cross_attention: bool = False):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = query_dim if context_dim is None else context_dim
@@ -252,6 +263,10 @@ class CrossAttention(nn.Module):
         if relative_position:
             self.relative_position_k = RelativePosition(dim_head, temporal_length)
             self.relative_position_v = RelativePosition(dim_head, temporal_length)
+        self.img_cross_attention = img_cross_attention
+        if img_cross_attention:
+            self.to_k_ip = nn.Linear(ctx_dim, inner, bias=False)
+            self.to_v_ip = nn.Linear(ctx_dim, inner, bias=False)
 
     def forward(self, x, context=None):
         h, d = self.heads, self.dim_head
@@ -265,6 +280,9 @@ class CrossAttention(nn.Module):
                                        self.to_v.weight, out_proj.weight, out_proj.bias, h)
         q = self.to_q(x)
         ctx = x if context is None else context
+        ctx_img = None
+        if context is not None and self.img_cross_attention:
+            ctx, ctx_img = ctx[:, :TEXT_CONTEXT_LEN], ctx[:, TEXT_CONTEXT_LEN:]
         k, v = self.to_k(ctx), self.to_v(ctx)
         b, sq, sk = x.shape[0], x.shape[1], k.shape[1]
         if plain_self and use_packed_tiny(q, sq, sk, None, h * d, h):
@@ -278,7 +296,12 @@ class CrossAttention(nn.Module):
             out = self._relative_attention(qh, kh, vh, bias)
         else:
             out = dot_product_attention(qh, kh, vh, bias=bias)
-        return self.to_out(out.reshape(b, sq, h * d))
+        out = out.reshape(b, sq, h * d)
+        if ctx_img is not None:
+            k_ip = self.to_k_ip(ctx_img).reshape(b, -1, h, d)
+            v_ip = self.to_v_ip(ctx_img).reshape(b, -1, h, d)
+            out = out + dot_product_attention(qh, k_ip, v_ip).reshape(b, sq, h * d)
+        return self.to_out(out)
 
     def _relative_attention(self, q, k, v, bias):
         """softmax(q k^T s + q rel_k^T s + bias) (v + rel_v), fp32 logits
@@ -326,13 +349,14 @@ class BasicTransformerBlock(nn.Module):
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int | None,
                  relative_position: bool = False, temporal_length: int | None = None,
-                 causal: bool = False):
+                 causal: bool = False, img_cross_attention: bool = False):
         super().__init__()
         rel = dict(relative_position=relative_position, temporal_length=temporal_length)
         self.attn1 = CrossAttention(dim, heads, dim_head, causal=causal, **rel)
         self.ff = FeedForward(dim)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim=context_dim,
-                                    causal=causal, **rel)
+                                    causal=causal, img_cross_attention=img_cross_attention,
+                                    **rel)
         self.norm1 = LayerNorm32(dim)
         self.norm2 = LayerNorm32(dim)
         self.norm3 = LayerNorm32(dim)
@@ -346,13 +370,16 @@ class BasicTransformerBlock(nn.Module):
 class SpatialTransformer(nn.Module):
     """Per-frame transformer over the h*w tokens; input [BT, H, W, C]."""
 
-    def __init__(self, ch: int, heads: int, dim_head: int, depth: int, context_dim: int):
+    def __init__(self, ch: int, heads: int, dim_head: int, depth: int, context_dim: int,
+                 img_cross_attention: bool = False):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(32, ch, eps=1e-6)
         self.proj_in = nn.Linear(ch, inner)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, heads, dim_head, context_dim) for _ in range(depth))
+            BasicTransformerBlock(inner, heads, dim_head, context_dim,
+                                  img_cross_attention=img_cross_attention)
+            for _ in range(depth))
         self.proj_out = nn.Linear(inner, ch)
 
     def forward(self, x, context=None):
@@ -433,10 +460,6 @@ class UNet3D(nn.Module):
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
-        if cfg.use_image_attention:
-            raise NotImplementedError(
-                "UNet3D use_image_attention (the i2v model) is not ported yet "
-                "(ROADMAP Queue 1 item 5)")
         self.cfg = cfg
         mc, ted = cfg.model_channels, cfg.time_embed_dim
         self.time_embed = nn.Sequential(nn.Linear(mc, ted), nn.SiLU(), nn.Linear(ted, ted))
@@ -464,7 +487,8 @@ class UNet3D(nn.Module):
                             cfg.temporal_conv, cfg.tempspatial_aware)
         if kind == "spatial":
             return SpatialTransformer(spec["out_ch"], spec["heads"], spec["dim_head"],
-                                      cfg.transformer_depth, cfg.context_dim)
+                                      cfg.transformer_depth, cfg.context_dim,
+                                      img_cross_attention=cfg.use_image_attention)
         if kind == "temporal":
             return self._temporal(spec["out_ch"], spec["heads"], spec["dim_head"])
         if kind == "down":

@@ -178,8 +178,9 @@ def test_batch_cli_loader_and_refusals(tiny_ckpt, tmp_path):  # noqa: F811
     """load_pipeline on the shrunk YAML and checkpoint carries the flags
     (steps, eta, guidance, temporal guidance, fps) and the YAML's
     uncond_type ('zero_embed', which cli.main now takes too) into the
-    pipeline, and main writes the video; an i2v config or --mode i2v, --mesh,
-    and --bs with n_samples or FreeInit are refused."""
+    pipeline, and main writes the video; --mesh, --bs with n_samples,
+    FreeInit or --mode i2v (also on an i2v config), and --mode i2v without
+    --cond_image_dir are refused (the i2v loader: tests/test_torch_i2v.py)."""
     cfg_path, _, sd = tiny_ckpt
     zero = tmp_path / "zero.yaml"
     zero.write_text(TINY_YAML.replace("uncond_type: empty_seq", "uncond_type: zero_embed"))
@@ -208,8 +209,9 @@ def test_batch_cli_loader_and_refusals(tiny_ckpt, tmp_path):  # noqa: F811
     i2v = tmp_path / "i2v.yaml"
     i2v.write_text(TINY_YAML.replace("lvdm.models.ddpm3d.LatentDiffusion",
                                      "lvdm.models.ddpm3d.LatentVisualDiffusion"))
-    refusals = [(["--config", str(i2v)], NotImplementedError, "item 5"),
-                (["--mode", "i2v"], NotImplementedError, "item 5"),
+    refusals = [(["--config", str(i2v), "--mode", "i2v", "--bs", "2"], ValueError,
+                 "plain base sampling"),
+                (["--mode", "i2v"], ValueError, "cond_image_dir"),
                 (["--mesh", "1,2"], NotImplementedError, "item 8"),
                 (["--bs", "2", "--n_samples", "2"], ValueError, "plain base sampling"),
                 (["--bs", "2", "--freeinit_iters", "2"], ValueError, "plain base sampling")]

@@ -98,7 +98,7 @@ def _assert_config_matches(port, ref):
             if name == "dropout":  # the port's UNetConfig field with no JAX counterpart
                 continue
             assert value == r[name], (part, name)
-    assert port.is_i2v == ref.is_i2v
+    assert port.is_i2v == ref.is_i2v and port.finegrained == ref.finegrained
 
 
 @pytest.mark.parametrize("which", ["shipped", "tiny"])

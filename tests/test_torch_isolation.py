@@ -46,7 +46,10 @@ def test_port_and_chip_smoke_import_no_jax_and_no_moca_tpu():
     assert {"moca_tpu_torch.pipelines.moca_video", "moca_tpu_torch.cli.main",
             "moca_tpu_torch.io.davis", "moca_tpu_torch.config",
             "moca_tpu_torch.cli.inference", "moca_tpu_torch.pipelines.t2v",
-            "moca_tpu_torch.sampling.ddpm"} <= set(port)
+            "moca_tpu_torch.sampling.ddpm", "moca_tpu_torch.models.clip_vision",
+            "moca_tpu_torch.models.ip_resampler", "moca_tpu_torch.eval.metrics",
+            "moca_tpu_torch.eval.fvd", "moca_tpu_torch.eval.i3d", "moca_tpu_torch.eval.vbench",
+            "moca_tpu_torch.cli.eval_sweep"} <= set(port)
     modules = port + _chip_smoke_imports() + ["chip_smoke"]
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}:\n"

@@ -107,8 +107,15 @@ def test_unet_option_matches_jax(option):
 
 
 def test_image_attention_is_refused():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tunet.UNet3D(tunet.UNetConfig(**BASE, use_image_attention=True))
+    """Image cross-attention is no longer refused: the U-Net builds with
+    use_image_attention, with to_k_ip / to_v_ip in the spatial
+    transformers' attn2 only (the forward against the JAX package is in
+    tests/test_torch_i2v.py)."""
+    unet = tunet.UNet3D(tunet.UNetConfig(**BASE, use_image_attention=True))
+    keys = [k for k in unet.state_dict() if "_ip." in k]
+    assert keys and all(".attn2.to_" in k for k in keys)
+    assert all(isinstance(unet.get_submodule(k.rsplit(".transformer_blocks", 1)[0]),
+                          tunet.SpatialTransformer) for k in keys)
 
 
 # ---------------------------------------------------------------------------
