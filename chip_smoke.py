@@ -80,9 +80,27 @@ Phases, each failing loudly (non-zero exit, no result line):
      CLIP text `embed`, AlexNet-LPIPS and I3D on the card held to fp32 on
      the CPU, FVD of a set against itself and a shifted set; MoCA at f=16,
      n=1 (16 steps, cut from the sweep's n=4), 16 new frames a row; the
-     metrics JSON must have the JAX sweep's keys.
+     metrics JSON must have the JAX sweep's keys;
+ 13. the mesh (parallel/mesh.py) on the one card: (a) two spawned gloo ranks
+     on cuda:0 (a FileStore under build/), each building phase 4's model,
+     run phase 4's call on MoCAVideoPipeline(mesh=make_mesh((1, 2))), each
+     computing 8 of the 16 U-Net rows; rank 0's frames are held to phase
+     4's one-process run (MESH_REL_TOL), the ranks' frames must be
+     identical, each rank's gathered U-Net (16 rows) and decode (8 latents)
+     outputs on random rows are held to the whole calls (BATCH_REL_TOL; the
+     planted fault: the two ranks' blocks swapped in the gather), and each rank's K1/K2 launches must be phase
+     4's at half the rows; each rank's steady s an iteration, peak memory
+     and the gather's ms are printed (two ranks share one card's SMs: no
+     speedup is expected); (b) moca_tpu_torch.cli.main --mesh 1,1 in a child under
+     torchrun's environment (env://, NCCL, one rank) at n=1, 2 new frames;
+     (c) --mesh 1,2 without WORLD_SIZE=2 must raise the ValueError.
+Phase 6 also holds the host library's (io/fastio.py) conversions and
+packing of the 72 frames to numpy and times both (io/video.py takes the
+library's uint8 -> float only, the one it is faster at); phase 7's
+run with the provider runs with MOCA_TPU_PROFILE=1 and must print the
+pipeline's {"profile": ...} line with the JAX package's stage names.
 Phase 2 also holds K1 and K2 (and K3/K4, as the switches would send them)
-at every shape that phases 8-12 give them. Phases 4 and 6-12 set every
+at every shape that phases 8-13 give them. Phases 4 and 6-13 set every
 kernel's launch count to 0 just before each run and read it just after; every
 shape a kernel received must have been held to its plain version in phase 2.
 Every phase prints its seconds. Prints a JSON line of kernel measurements,
@@ -94,6 +112,7 @@ Usage: python3 chip_smoke.py [new_video_length (default 4)]
 from __future__ import annotations
 
 import contextlib
+import io
 import itertools
 import json
 import math
@@ -133,6 +152,14 @@ SWITCHES = {"MOCA_TPU_FA_FUSED_QKV": "1", "MOCA_TPU_FA_ONEPASS": "1"}
 # regrouped from the iteration-major frame list with the wrong stride.
 # Another prompt's reading is printed beside them.
 BATCH_REL_TOL = 2e-2
+# Phase 13: rank 0's frames against phase 4's one-process run. The sound run
+# differs by bf16 rounding at 8 U-Net rows against 16 (3.074e-3 on an H100
+# 80GB HBM3, 700 W, the same in every run); the limit is 2.6x that. It has no
+# planted fault of its own: random weights make the U-Net's output depend
+# little on its row's input, so a whole run with the two ranks' U-Net blocks
+# (windows 0-3 and 4-7, both CFG rows each) swapped read 3.784e-3 (PERF.md,
+# PR 8). The gathers' order is held where it shows, on rows that all differ.
+MESH_REL_TOL = 8e-3
 # DDPM's schedule in phase 9, cut from the model's 1000 steps: at 128x128 a
 # step is host-bound (74-103 ms, PERF.md section 5), and the script must end
 # well inside its time limit.
@@ -173,6 +200,35 @@ def switches_on():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@contextlib.contextmanager
+def profile_env():
+    """MOCA_TPU_PROFILE=1: the pipeline prints its {"profile": ...} line."""
+    old = os.environ.get("MOCA_TPU_PROFILE")
+    os.environ["MOCA_TPU_PROFILE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MOCA_TPU_PROFILE")
+        else:
+            os.environ["MOCA_TPU_PROFILE"] = old
+
+
+PROFILE_STAGES = {"fifo_iteration", "decode", "mask_provider"}  # moca_tpu's StepTimer stages
+
+
+def check_profile_line(stdout: str):
+    """Fails unless the run printed one {"profile": ...} line holding the JAX
+    package's stage names, each with count, total_s, mean_s and min_s."""
+    lines = [json.loads(line) for line in stdout.splitlines() if line.startswith('{"profile"')]
+    stages = lines[0]["profile"] if len(lines) == 1 else {}
+    if not PROFILE_STAGES <= set(stages) or any(
+            set(v) != {"count", "total_s", "mean_s", "min_s"} for v in stages.values()):
+        fail(f"MOCA_TPU_PROFILE=1: want one profile line with {sorted(PROFILE_STAGES)}, "
+             f"got {stdout[-2000:]!r}")
+    print(f"[profile line] {json.dumps(lines[0])}", flush=True)
 
 
 def max_row_rel_err(out, ref, d=64):
@@ -484,10 +540,11 @@ def main_path_shapes(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: in
 # MoCA at B=2 (8 windows x CFG x 2 prompts with the 154-token concept
 # context; its base sample, 2 prompts x CFG), the i2v clip (B=1 x CFG; its
 # context is 77 text and 16 image tokens, and the image tokens go to the
-# plain path at Sk=16), and the sweep's MoCA at n=1 (2 windows x CFG with
-# the concept context).
+# plain path at Sk=16), the sweep's MoCA at n=1 (2 windows x CFG with
+# the concept context; phase 13's CLI run too), and one of phase 13's two
+# ranks (8 of the main path's 16 FIFO rows; its base sample, 1 of 2 rows).
 SLICE_RUNS = ((8, 77, (40, 64)), (1, 77, (40, 64)), (2, 77, (16, 16)), (32, 154, (40, 64)),
-              (4, 77, (40, 64)), (2, 77, (40, 64)), (4, 154, (40, 64)))
+              (4, 77, (40, 64)), (2, 77, (40, 64)), (4, 154, (40, 64)), (8, 154, (40, 64)))
 
 
 def slice_shapes(known_k1, known_k2):
@@ -632,32 +689,46 @@ def phase_unet_reference():
                                 num_head_channels=32)
 
 
-def phase_main_path(new_video_length: int, num_partitions: int):
-    """Build the full-width model and drive the main path twice: as shipped,
-    then with both switches. Returns ({run: {kernel: {shape: launches}}}, model)."""
-    import numpy as np
+def full_width_model():
+    """The shipped VideoCrafter2 widths, random bf16 weights on the card from
+    a CUDA generator seeded 1: the same model in every process that builds it."""
     import torch
     from moca_tpu_torch.models.clip_text import CLIPTextConfig
     from moca_tpu_torch.models.latent_diffusion import init_random_model
-    from moca_tpu_torch.models.tokenizer import HashTokenizer
     from moca_tpu_torch.models.unet3d import UNetConfig
     from moca_tpu_torch.models.vae import VAEConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return init_random_model(UNetConfig(), VAEConfig(), CLIPTextConfig(), gen,
+                             device="cuda", dtype=torch.bfloat16)
+
+
+def main_path_call():
+    """The main path's call: the prompt, concept image, conditioned prompt,
+    gamma and masks (a 20 x 32 rectangle on every frame) at 512x320."""
+    import numpy as np
+
+    masks = np.zeros((16, 40, 64), np.float32)
+    masks[:, 10:30, 16:48] = 1.0
+    return dict(prompt="a cat surfing", seed=321, cond_image=np.full((40, 64, 4), 0.2, np.float32),
+                conditioned_prompt="a dog", gamma=0.5, height=320, width=512, masks=masks)
+
+
+def phase_main_path(new_video_length: int, num_partitions: int):
+    """Build the full-width model and drive the main path twice: as shipped,
+    then with both switches. Returns ({run: {kernel: {shape: launches}}},
+    model, the as-shipped run's frames)."""
+    import torch
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
     from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
 
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    model = init_random_model(UNetConfig(), VAEConfig(), CLIPTextConfig(), gen,
-                              device="cuda", dtype=torch.bfloat16)
+    model = full_width_model()
     print(f"[main] model built in {time.perf_counter() - t0:.1f} s, "
           f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params", flush=True)
     f = 16
-    h, w = 40, 64
-    masks = np.zeros((f, h, w), np.float32)
-    masks[:, 10:30, 16:48] = 1.0
-    cond = np.full((h, w, 4), 0.2, np.float32)
-
-    shapes = {}
+    shapes, frames_out = {}, {}
     for run, expect in (("default", ("flash_attention", "packed_attention")),
                         ("switched", ("flash_attention", "fused_qkv_attention",
                                       "flash_attention_onepass"))):
@@ -668,10 +739,10 @@ def phase_main_path(new_video_length: int, num_partitions: int):
         with switches_on() if run == "switched" else contextlib.nullcontext():
             fa.reset_launch_counts()
             t0 = time.perf_counter()
-            frames = pipe("a cat surfing", seed=321, cond_image=cond, conditioned_prompt="a dog",
-                          gamma=0.5, height=320, width=512, masks=masks)
+            frames = pipe(**main_path_call())
             total = time.perf_counter() - t0
             shapes[run] = _launches(f"main {run}", expect)
+        frames_out[run] = frames
         iters = new_video_length + pipe.num_inference_steps - f
         _check_frames(f"main path ({run})", frames, iters)
         steady = pipe.timings["fifo_iteration"] + pipe.timings["decode"]
@@ -680,7 +751,7 @@ def phase_main_path(new_video_length: int, num_partitions: int):
               f"{steady / iters:.3f} s/frame; stages "
               f"{json.dumps({k: round(v, 3) for k, v in pipe.timings.items()})}; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    return shapes, model
+    return shapes, model, frames_out["default"]
 
 
 def _check_frames(label, frames, iters):
@@ -723,6 +794,63 @@ def davis_inputs(n=72, hw=(40, 64)):
     return frames, masks, cond
 
 
+# uint8 -> float: the host library computes x * (2/255) - 1, numpy's path
+# (x / 255 - 0.5) * 2; the two differ by one float32 rounding (2^-23 at
+# |x| <= 1). float -> uint8 and the packing are exact.
+U8_ULP = 2.0 ** -23
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def hold_fastio(frames):
+    """The host library's (io/fastio.py, built from native/fastio.cpp)
+    conversions and packing of the 72 DAVIS frames, held to numpy and timed
+    against it, and io/video.py's uint8 -> float taking the library."""
+    import numpy as np
+    from moca_tpu_torch.io import fastio, video
+
+    t0 = time.perf_counter()
+    if not fastio.available():
+        fail("io/fastio.py: the host library did not build or load")
+    build_s = time.perf_counter() - t0
+    np_u8 = lambda: [((np.clip(f, -1.0, 1.0) + 1.0) * 127.5).astype(np.uint8) for f in frames]
+    u8 = [fastio.float_to_uint8(f) for f in frames]
+    ref_u8 = np_u8()
+    clip = fastio.pack_frames(u8)
+    np_float = lambda: (clip.astype(np.float32) / 255.0 - 0.5) * 2.0
+    calls = []
+    library = fastio.uint8_to_float
+    fastio.uint8_to_float = lambda x: calls.append(1) or library(x)
+    back = video.uint8_to_tensor(clip)
+    fastio.uint8_to_float = library
+    if not calls:
+        fail("io/video.py: uint8_to_tensor did not take the host library")
+    errs = dict(
+        float_to_uint8=int(max(np.abs(a.astype(np.int16) - b).max() for a, b in zip(u8, ref_u8))),
+        pack_frames=int(np.abs(clip.astype(np.int16) - np.stack(ref_u8)).max()),
+        uint8_to_float=float(np.abs(back - np_float()).max()))
+    if errs["float_to_uint8"] or errs["pack_frames"] or not errs["uint8_to_float"] <= U8_ULP:
+        fail(f"io/fastio.py against numpy on the 72 DAVIS frames: {errs} (want 0, 0, <= {U8_ULP})")
+    ms = {
+        "float_to_uint8": (host_ms(lambda: [fastio.float_to_uint8(f) for f in frames]),
+                           host_ms(np_u8)),
+        "pack_frames": (host_ms(lambda: fastio.pack_frames(u8)), host_ms(lambda: np.stack(u8))),
+        "uint8_to_float": (host_ms(lambda: fastio.uint8_to_float(clip)), host_ms(np_float)),
+    }
+    print(f"[davis fastio] library built and loaded in {build_s:.2f} s; the 72 frames "
+          f"[72, 320, 512, 3] against numpy: max err {json.dumps(errs)} (float_to_uint8 and "
+          f"pack_frames exact, uint8_to_float within {U8_ULP:.3g}; io/video.py's "
+          f"uint8_to_tensor took the library); host ms, library / numpy: "
+          f"{json.dumps({k: [round(a, 2), round(b, 2)] for k, (a, b) in ms.items()})}",
+          flush=True)
+
+
 def phase_davis(model, new_video_length: int, num_partitions: int):
     """DAVIS mode at full width. Returns {kernel: {shape: launches}}."""
     import copy
@@ -734,6 +862,7 @@ def phase_davis(model, new_video_length: int, num_partitions: int):
     from moca_tpu_torch.sampling.ddim import GeneratorNormal
 
     frames, masks, cond = davis_inputs()
+    hold_fastio(frames)
     torch.cuda.reset_peak_memory_stats()
     normal = GeneratorNormal(SEED, "cuda")
     torch.cuda.synchronize()
@@ -849,10 +978,13 @@ def phase_open_vocab(model, new_video_length: int, num_partitions: int):
     baseline = (pipe.timings["fifo_iteration"] + pipe.timings["decode"]) / iters
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    out = io.StringIO()
     t0 = time.perf_counter()
-    video = pipe("a cat surfing", **call, mask_provider=CallbackMaskProvider(detect),
-                 target="cat")
+    with profile_env(), contextlib.redirect_stdout(out):
+        video = pipe("a cat surfing", **call, mask_provider=CallbackMaskProvider(detect),
+                     target="cat")
     total = time.perf_counter() - t0
+    check_profile_line(out.getvalue())
     shutil.rmtree(latents_dir, ignore_errors=True)
     launched = _launches("open_vocab", ("flash_attention", "packed_attention"))
     _check_frames("open-vocab mode", video, iters)
@@ -1493,6 +1625,276 @@ def phase_eval_sweep(model):
     return launched
 
 
+# --- phase 13: the mesh on one card --------------------------------------------
+
+MESH_RANKS = 2
+MESH_JOIN_S = 400  # each child's join timeout, seconds
+MESH_DIR = os.path.join("build", "smoke_mesh")
+
+
+def _halved(launched):
+    """{kernel: {shape: n}} with each shape's leading rows halved: what one
+    of two ranks launches where one process launched `launched`."""
+    return {k: {(sh[0] // MESH_RANKS,) + tuple(sh[1:]): n for sh, n in by.items()}
+            for k, by in launched.items() if by}
+
+
+def swapped_gather(gather):
+    """The planted fault: `gather` (parallel/mesh.py's gather_rows) with the
+    two ranks' blocks swapped."""
+
+    def swapped(mesh, block, n):
+        return gather(mesh, block, mesh.size() * block.shape[0]).roll(-block.shape[0], 0)[:n]
+
+    return swapped
+
+
+def hold_gathers(pm, mesh, model):
+    """The gathered output of the FIFO batch's U-Net call (16 rows, the
+    154-token context) and of the head decode (8 latents), split over the
+    ranks, against the whole call in this rank, on rows that all differ;
+    then the same with the planted fault (`swapped_gather`). Returns
+    {call: [relative L2, the fault's]}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((16, 16, 40, 64, 4), generator=gen, device="cuda")
+    ts = torch.randint(0, 1000, (16, 16), generator=gen, device="cuda")
+    ctx = torch.randn((16, 154, 1024), generator=gen, device="cuda")
+    heads = torch.randn((8, 40, 64, 4), generator=gen, device="cuda")
+    calls = {
+        "unet": (lambda: pm.make_sharded_unet_apply(model.apply_unet, mesh)(x, ts, ctx, 16),
+                 lambda: model.apply_unet(x, ts, ctx, 16)),
+        "decode": (lambda: pm.map_tiled_rows(model.decode_single, mesh, heads),
+                   lambda: model.decode_single(heads)),
+    }
+    rel = lambda a, b: float((a.float() - b.float()).norm() / b.float().norm())
+    out = {}
+    with torch.inference_mode():
+        for name, (sharded, whole) in calls.items():
+            ref, got = whole(), sharded()
+            gather, pm.gather_rows = pm.gather_rows, swapped_gather(pm.gather_rows)
+            try:
+                bad = sharded()
+            finally:
+                pm.gather_rows = gather
+            out[name] = [rel(got, ref), rel(bad, ref)]
+    return out
+
+
+def _mesh_rank(rank, new_video_length, num_partitions):
+    """One of phase 13's gloo ranks on cuda:0: the main path's call on a
+    (1, 2) mesh, the gather alone, then the gathers' order
+    (`hold_gathers`). Writes rank{r}.npz."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.parallel import mesh as pm
+    from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
+
+    store = os.path.abspath(os.path.join(MESH_DIR, "store"))
+    torch.cuda.set_device(0)  # both ranks on the one card
+    pm.initialize_distributed(f"file://{store}", MESH_RANKS, rank, backend="gloo")
+    mesh = pm.make_mesh((1, MESH_RANKS))
+    model = full_width_model()
+    pipe = MoCAVideoPipeline(model, HashTokenizer(), video_length=16,
+                             num_partitions=num_partitions, new_video_length=new_video_length,
+                             guidance_scale=12.0, mesh=mesh)
+    call = dict(main_path_call(), latents_dir=os.path.join(MESH_DIR, "latents"))
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    frames = np.stack(pipe(**call))
+    total = time.perf_counter() - t0
+    launched = {fn.__name__: {json.dumps(sh): n for sh, n in fn.launches.items()}
+                for fn in fa.KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = dict(pipe.timings)
+
+    block = torch.randn((8, 16, 40, 64, 4), device="cuda").to(torch.bfloat16)
+    for _ in range(2):
+        pm.gather_rows(mesh, block, 16)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(10):
+        pm.gather_rows(mesh, block, 16)
+    torch.cuda.synchronize()
+    gather_ms = (time.perf_counter() - t1) / 10 * 1e3
+    gathers = hold_gathers(pm, mesh, model)
+    dist.destroy_process_group()
+    out = dict(digest=hashlib.sha256(frames.tobytes()).hexdigest(),
+               stats=json.dumps(dict(total_s=total, stages=stages, peak_gib=peak,
+                                     gather_ms=gather_ms, launched=launched, gathers=gathers)))
+    if rank == 0:
+        out["frames"] = frames
+    np.savez(os.path.join(MESH_DIR, f"rank{rank}.npz"), **out)
+
+
+def _mesh_cli(port, num_partitions):
+    """Phase 13 (b): cli.main with --mesh 1,1 as torchrun starts one process
+    (its environment, env://), so on NCCL; the pipeline on the full-width
+    model. Writes cli.json."""
+    os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    import torch.distributed as dist
+
+    import moca_tpu_torch.cli.main as cli
+    from moca_tpu_torch.models.tokenizer import HashTokenizer
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
+
+    root = os.path.abspath(os.path.join(MESH_DIR, "cli"))
+    concept = write_pngs(os.path.join(root, "concept"), 1, (64, 64), SEED)[0]
+    prompts = os.path.join(root, "prompts.csv")
+    with open(prompts, "w") as f:
+        f.write("prompt,conditioned_object,conditioned_image_path,conditioned_prompt,gamma\n"
+                f"a cat surfing,cat,{concept},a dog,0.5\n")
+    seen = {}
+
+    def load(args):
+        mesh = cli.parse_mesh(args)
+        seen.update(backend=dist.get_backend(), mesh=str(mesh), world=dist.get_world_size())
+        return MoCAVideoPipeline(full_width_model(), HashTokenizer(),
+                                 video_length=args.video_length,
+                                 num_partitions=args.num_partitions,
+                                 new_video_length=args.new_video_length,
+                                 guidance_scale=args.unconditional_guidance_scale, mesh=mesh)
+
+    cli.load_pipeline = load
+    os.chdir(root)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(cli.build_parser().parse_args([
+        "--prompt_file", prompts, "--output_dir", "out", "--mesh", "1,1", "-n",
+        str(num_partitions), "-l", "2", "--no_save_frames"]))
+    seen.update(seconds=time.perf_counter() - t0, group_after=dist.is_initialized(),
+                launched={fn.__name__: {json.dumps(sh): n for sh, n in fn.launches.items()}
+                          for fn in fa.KERNELS},
+                video=os.path.exists(os.path.join(
+                    root, "out", os.path.splitext(os.path.basename(concept))[0],
+                    "a cat surfing.mp4")))
+    with open(os.path.join(root, "cli.json"), "w") as f:
+        json.dump(seen, f)
+
+
+def _run_children(label, targets):
+    """Start every (target, args) in a spawned process, join each within
+    MESH_JOIN_S; fails if one hangs, dies or exits non-zero."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=t, args=a) for t, a in targets]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_JOIN_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    hung = [i for i, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        fail(f"{label}: children hung {hung}, exit codes {codes}")
+
+
+def _decoded_launches(launched):
+    return {k: {tuple(json.loads(sh)): n for sh, n in by.items()} for k, by in launched.items()}
+
+
+def phase_mesh(main_frames, main_launches, new_video_length: int, num_partitions: int):
+    """(a) the main path's call on two gloo ranks sharing cuda:0, each with its
+    own model (8 of the 16 U-Net rows a rank), rank 0's frames held to phase
+    4's one-process run (MESH_REL_TOL), every rank's frames the same, K1/K2
+    launches half phase 4's rows at phase 4's counts, each rank's gathered
+    U-Net and decode outputs held to the whole calls (BATCH_REL_TOL; the
+    planted fault: the two ranks' blocks swapped in the gather); (b) one NCCL rank through cli.main --mesh 1,1 at n=1; (c)
+    cli.main --mesh 1,2 without WORLD_SIZE=2 raising the ValueError.
+    Returns {run: launches}."""
+    import shutil
+    import socket
+
+    import numpy as np
+    import torch
+
+    import moca_tpu_torch.cli.main as cli
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _run_children("phase 13 (a), two gloo ranks", [
+        (_mesh_rank, (r, new_video_length, num_partitions)) for r in range(MESH_RANKS)])
+    wall = time.perf_counter() - t0
+    outs = [dict(np.load(os.path.join(MESH_DIR, f"rank{r}.npz"))) for r in range(MESH_RANKS)]
+    stats = [json.loads(str(o["stats"])) for o in outs]
+    if len({str(o["digest"]) for o in outs}) != 1:
+        fail("phase 13: the two ranks returned different frames")
+    frames, ref = outs[0]["frames"], np.stack(main_frames)
+    iters = new_video_length + 16 * num_partitions - 16
+    _check_frames("phase 13 rank 0", list(frames), iters)
+    err = rel_l2(frames, ref)
+    if not err <= MESH_REL_TOL:
+        fail(f"phase 13: rank 0's frames against the one-process run: relative L2 {err} "
+             f"(limit {MESH_REL_TOL})")
+    for r, st in enumerate(stats):
+        for name, (g_err, g_fault) in st["gathers"].items():
+            if not g_err <= BATCH_REL_TOL < g_fault:
+                fail(f"phase 13 rank {r}: the {name} call's gathered output against the whole "
+                     f"call: relative L2 {g_err}, the planted block swap {g_fault} (limit "
+                     f"{BATCH_REL_TOL})")
+    shapes = {}
+    expect = {k: v for k, v in _halved(main_launches).items()
+              if k in ("flash_attention", "packed_attention")}
+    for r, st in enumerate(stats):
+        launched = _decoded_launches(st["launched"])
+        got = {k: v for k, v in launched.items() if v}
+        if got != expect:
+            fail(f"phase 13 rank {r}: launches {got} != half of phase 4's rows {expect}")
+        shapes[f"mesh_rank{r}"] = launched
+        t = st["stages"]
+        print(f"[mesh rank {r}] {iters} iterations; steady (FIFO+decode) "
+              f"{(t['fifo_iteration'] + t['decode']) / iters:.3f} s an iteration; whole call "
+              f"{st['total_s']:.2f} s; stages {json.dumps({k: round(v, 3) for k, v in t.items()})}"
+              f"; peak memory {st['peak_gib']:.1f} GiB; gather of 8 of 16 U-Net rows "
+              f"[8, 16, 40, 64, 4] bf16 over gloo {st['gather_ms']:.2f} ms; launches K1 "
+              f"{sum(launched['flash_attention'].values())}, K2 "
+              f"{sum(launched['packed_attention'].values())} (half of phase 4's rows, its "
+              f"counts); gathered against the whole call, relative L2 (the planted block "
+              f"swap): {'; '.join(f'{k} {a:.3e} ({b:.3e})' for k, (a, b) in st['gathers'].items())}"
+              f" (limit {BATCH_REL_TOL})", flush=True)
+    print(f"[mesh] two gloo ranks on one card: {wall:.1f} s for both processes; rank 0's "
+          f"{len(frames)} frames against phase 4's one-process run: relative L2 {err:.3e} "
+          f"(limit {MESH_REL_TOL}); both ranks' frames identical", flush=True)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    _run_children("phase 13 (b), one NCCL rank through the CLI", [(_mesh_cli, (port, 1))])
+    with open(os.path.join(MESH_DIR, "cli", "cli.json")) as f:
+        seen = json.load(f)
+    if seen["backend"] != "nccl" or seen["world"] != 1 or seen["group_after"] or not seen["video"]:
+        fail(f"phase 13 (b): {seen}")
+    shapes["mesh_cli"] = _decoded_launches(seen.pop("launched"))
+    print(f"[mesh cli] --mesh 1,1 under torchrun's environment: {json.dumps(seen)}", flush=True)
+
+    os.environ.pop("WORLD_SIZE", None)
+    try:
+        cli.main(cli.build_parser().parse_args(["--mesh", "1,2"]))
+    except ValueError as exc:
+        print(f"[mesh cli] --mesh 1,2 without WORLD_SIZE=2 refused: {exc}", flush=True)
+    else:
+        fail("phase 13 (c): --mesh 1,2 without WORLD_SIZE=2 was not refused")
+    return shapes
+
+
 _CATEGORIES = (  # kernel-name substrings -> category, first match wins
     ("flash_fwd", "K1 flash_attention"), ("packed_fwd", "K2 packed_attention"),
     ("fused_qkv_fwd", "K3 fused_qkv_attention"), ("onepass_fwd", "K4 flash_attention_onepass"),
@@ -1603,8 +2005,8 @@ def main(argv):
     rows = timed("phase 2, kernels against their plain versions", phase_kernels, rows_fifo, 2,
                  154, 77)
     unet_d32 = timed("phase 3, U-Net against its plain path", phase_unet_reference)
-    shapes, model = timed("phase 4, main path", phase_main_path, new_video_length,
-                          num_partitions)
+    shapes, model, main_frames = timed("phase 4, main path", phase_main_path, new_video_length,
+                                       num_partitions)
     shapes["unet_d32"] = unet_d32
     timed("phase 5, profile", phase_profile, model, rows_fifo, 154)
     shapes["davis"] = timed("phase 6, DAVIS", phase_davis, model, new_video_length,
@@ -1617,6 +2019,8 @@ def main(argv):
                         new_video_length))
     shapes.update(timed("phase 11, i2v", phase_i2v))
     shapes.update(timed("phase 12, evaluation sweep", phase_eval_sweep, model))
+    shapes.update(timed("phase 13, mesh", phase_mesh, main_frames, shapes["default"],
+                        new_video_length, num_partitions))
 
     for run, by_kernel in shapes.items():
         for name, by_shape in by_kernel.items():

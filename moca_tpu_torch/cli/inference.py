@@ -21,8 +21,13 @@ moca_tpu_torch on the GPU:
     the text context, and the mp4 is named after the image's stem
     (inference.py:82-84,110-117). FreeInit samples without the image
     tokens, as the JAX CLI does. --mode i2v or an i2v config loads the i2v
-    model; i2v runs one prompt a call (--bs 1).
-Not yet ported: --mesh (ROADMAP Queue 1 item 8); it raises NotImplementedError.
+    model; i2v runs one prompt a call (--bs 1);
+  * --mesh DP,FIFO: one process a GPU (parallel/mesh.py), the 2*--bs CFG
+    rows of each U-Net call and the decode's frame rows split over the ranks
+    where they tile them, rank 0 writing the mp4s:
+        torchrun --nproc_per_node N -m moca_tpu_torch.cli.inference --mesh 1,N ...
+    Without torchrun only --mesh 1,1 (a one-rank group the CLI starts and
+    ends itself). --rank / --num_processes still split the prompt file.
 
 Noise: `sample_normal` maps (seed, global prompt index, sample index) to
 the generator of one sampling call. A --bs round uses its first prompt's
@@ -41,9 +46,10 @@ import time
 import numpy as np
 import torch
 
-from moca_tpu_torch.cli.main import PRECISIONS, load_model
+from moca_tpu_torch.cli.main import PRECISIONS, load_model, parse_mesh
 from moca_tpu_torch.io.video import load_image_batch, save_video_grid
 from moca_tpu_torch.models.tokenizer import load_tokenizer
+from moca_tpu_torch.parallel.mesh import barrier, is_lead, own_group
 from moca_tpu_torch.pipelines.t2v import T2VPipeline
 from moca_tpu_torch.sampling.ddim import GeneratorNormal
 from moca_tpu_torch.utils.logging import get_logger
@@ -87,7 +93,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="i2v mode: directory of images matched to prompts by sorted order "
                         "(--cond_input is the reference's flag name, inference.py:38)")
     p.add_argument("--mesh", type=str, default=None, metavar="DP,FIFO",
-                   help="multi-device sharding; not ported to GPUs yet")
+                   help="split the CFG rows and the decode over DP*FIFO ranks, one GPU each "
+                        "(torchrun --nproc_per_node DP*FIFO)")
     return p
 
 
@@ -105,13 +112,15 @@ def sample_normal(seed: int, prompt_index: int, sample_index: int, n_samples: in
 def load_pipeline(args, device=None) -> T2VPipeline:
     """The model of --config and --ckpt_path (cli.main.load_model) on
     `device`, the GPU unless the caller names one, behind a T2VPipeline; the
-    i2v model with --mode i2v or an i2v config (moca_tpu/cli/inference.py:107-108)."""
+    i2v model with --mode i2v or an i2v config (moca_tpu/cli/inference.py:107-108),
+    on the --mesh ranks."""
+    mesh = parse_mesh(args)
     model, cfg = load_model(args, device, visual=True if args.mode == "i2v" else None)
     return T2VPipeline.build(
         model, load_tokenizer(args.bpe_path), num_steps=args.ddim_steps, eta=args.ddim_eta,
         use_scale=cfg.diffusion.use_scale, guidance_scale=args.unconditional_guidance_scale,
         fps=args.fps, temporal_cfg_scale=args.unconditional_guidance_scale_temporal,
-        uncond_type=cfg.diffusion.uncond_type)
+        uncond_type=cfg.diffusion.uncond_type, mesh=mesh)
 
 
 def _host_frames(video: torch.Tensor):
@@ -140,10 +149,13 @@ def load_cond_images(args, n_prompts: int):
 
 def main(args, pipe: T2VPipeline = None):
     """Write one mp4 per prompt of this process's shard into --savedir.
-    `pipe` stands in for the pipeline `load_pipeline` builds from the files."""
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-GPU sharding is not ported yet (ROADMAP Queue 1 item 8)")
+    `pipe` stands in for the pipeline `load_pipeline` builds from the files.
+    A process group that --mesh started here ends with it."""
+    with own_group():
+        _run(args, pipe)
+
+
+def _run(args, pipe):
     if args.bs > 1 and (args.mode != "base" or args.freeinit_iters > 1 or args.n_samples != 1):
         raise ValueError("--bs>1 supports plain base sampling")
     with open(args.prompt_file) as f:
@@ -161,6 +173,11 @@ def main(args, pipe: T2VPipeline = None):
     size = dict(height=args.height, width=args.width, frames=args.frames)
     path = lambda prompt: os.path.join(args.savedir, prompt[:100].replace("/", "_") + ".mp4")
 
+    def save(samples, out_path):
+        if is_lead(pipe.mesh):
+            save_video_grid(samples, out_path, fps=args.savefps)
+        barrier(pipe.mesh)
+
     if args.bs > 1:
         for r0 in range(0, len(shard), args.bs):
             chunk = shard[r0: r0 + args.bs]
@@ -168,7 +185,7 @@ def main(args, pipe: T2VPipeline = None):
             videos = pipe(chunk, normal=sample_normal(args.seed, first + r0, 0, 1, device),
                           use_ddpm=args.ddim_steps <= 0, **size)
             for prompt, video in zip(chunk, videos):
-                save_video_grid([_host_frames(video)], path(prompt), fps=args.savefps)
+                save([_host_frames(video)], path(prompt))
             log.info("batch [%d:%d]/%d %.1fs", r0, r0 + len(chunk), len(shard),
                      time.perf_counter() - t0)
         return
@@ -189,7 +206,7 @@ def main(args, pipe: T2VPipeline = None):
                 video = pipe(prompt, normal=normal, image_tokens=img_tokens,
                              use_ddpm=args.ddim_steps <= 0, **size)
             samples.append(_host_frames(video))
-        save_video_grid(samples, out_path, fps=args.savefps)
+        save(samples, out_path)
         log.info("[%d/%d] %.1fs %s", i + 1, len(shard), time.perf_counter() - t0, prompt[:60])
 
 

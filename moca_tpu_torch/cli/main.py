@@ -11,9 +11,16 @@ Prompt mode:
 DAVIS mode:
     python -m moca_tpu_torch.cli.main --use_davis --video_name blackswan ...
 
+Several GPUs, one process each (parallel/mesh.py): every rank runs the
+whole loop and the FIFO window batch and head decode are split over them;
+rank 0 writes the files:
+    torchrun --nproc_per_node N -m moca_tpu_torch.cli.main --mesh 1,N ...
+`--mesh DP,FIFO` needs DP*FIFO ranks (torchrun's WORLD_SIZE); without
+torchrun only `--mesh 1,1`, on a one-rank group the CLI starts and ends
+itself. --rank / --num_processes still split the prompt rows.
+
 Noise: --seed seeds the port's generator (sampling/ddim.py GeneratorNormal);
-prompt row idx draws from a generator seeded with seed + idx. `--mesh`
-(multi-GPU) is not ported yet.
+prompt row idx draws from a generator seeded with seed + idx.
 
 An i2v config (LatentVisualDiffusion) runs as the JAX CLI runs it: the
 MoCA path has no image input, so the model is the text-to-video bundle
@@ -31,6 +38,7 @@ import argparse
 import os
 
 import torch
+import torch.distributed as dist
 
 from moca_tpu_torch import resolve_device
 from moca_tpu_torch.config import load_model_config
@@ -41,6 +49,9 @@ from moca_tpu_torch.io.video import load_conditioning_image, save_video, tensor_
 from moca_tpu_torch.models.clip_vision import CLIPVisionConfig
 from moca_tpu_torch.models.latent_diffusion import LatentDiffusion, LatentVisualDiffusion
 from moca_tpu_torch.models.tokenizer import load_tokenizer
+from moca_tpu_torch.parallel.mesh import (
+    barrier, initialize_distributed, is_lead, make_mesh, own_group,
+)
 from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
 from moca_tpu_torch.sampling.ddim import GeneratorNormal
 from moca_tpu_torch.sampling.moca import MoCAConfig
@@ -112,7 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="queue-tail refill on shift: freeinit = LPF anchor+noise mix "
                         "(funcs.py:86-99), plain = fresh noise (funcs_mp.py:39-46)")
     p.add_argument("--mesh", type=str, default=None, metavar="DP,FIFO",
-                   help="multi-device sharding; not ported to GPUs yet")
+                   help="split the FIFO window batch and head decode over DP*FIFO ranks, one "
+                        "GPU each (torchrun --nproc_per_node DP*FIFO)")
     p.add_argument("--checkpoint_every", type=int, default=0,
                    help="snapshot the FIFO state every N iterations; a killed run resumes "
                         "from the last snapshot")
@@ -148,8 +160,28 @@ def load_model(args, device=None, visual: bool | None = False):
     return model, cfg
 
 
+def parse_mesh(args):
+    """--mesh 'DP,FIFO' -> DeviceMesh over the ranks (None without --mesh).
+    It joins torchrun's ranks (WORLD_SIZE) or, with no process group and no
+    WORLD_SIZE, starts a one-rank group for a 1x1 mesh."""
+    if not getattr(args, "mesh", None):
+        return None
+    dp, fifo = (int(v) for v in args.mesh.split(","))
+    if dist.is_initialized():
+        world = dist.get_world_size()
+    else:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != dp * fifo:
+        raise ValueError(f"--mesh {dp},{fifo} needs DP*FIFO = {dp * fifo} ranks, but WORLD_SIZE "
+                         f"is {world}; launch it with torchrun --nproc_per_node {dp * fifo}")
+    if not dist.is_initialized():
+        initialize_distributed(num_processes=None if "WORLD_SIZE" in os.environ else 1)
+    return make_mesh((dp, fifo))
+
+
 def load_pipeline(args, device=None) -> MoCAVideoPipeline:
-    """`load_model` behind a MoCAVideoPipeline."""
+    """`load_model` behind a MoCAVideoPipeline on the --mesh ranks."""
+    mesh = parse_mesh(args)
     model, cfg = load_model(args, device)
     moca = MoCAConfig(gamma=args.gamma, inject_into_queue=args.inject_into_queue)
     return MoCAVideoPipeline(
@@ -158,7 +190,7 @@ def load_pipeline(args, device=None) -> MoCAVideoPipeline:
         guidance_scale=args.unconditional_guidance_scale, eta=args.eta, fps=args.fps,
         lookahead_denoising=args.lookahead_denoising, moca=moca,
         use_scale=cfg.diffusion.use_scale, checkpoint_every=args.checkpoint_every,
-        tail_mode=args.tail_mode, uncond_type=cfg.diffusion.uncond_type)
+        tail_mode=args.tail_mode, uncond_type=cfg.diffusion.uncond_type, mesh=mesh)
 
 
 def set_directory(args, prompt: str, conditioned_image_path: str):
@@ -181,11 +213,15 @@ def set_directory(args, prompt: str, conditioned_image_path: str):
 
 
 def main(args):
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: multi-GPU sharding is not ported yet (ROADMAP Queue 1 item 8)")
+    """Run the CLI; a process group that --mesh started here ends with it."""
+    with own_group():
+        _run(args)
+
+
+def _run(args):
     args.num_inference_steps = args.video_length * args.num_partitions
     pipe = load_pipeline(args)
+    lead = is_lead(pipe.mesh)
     device = pipe.model.device
     latent_hw = (args.height // 8, args.width // 8)
 
@@ -205,8 +241,10 @@ def main(args):
                      davis_frames=frames)
         out = os.path.join(output_dir, args.video_name)
         keep = video[: args.new_video_length // 2]  # videocrafter_main.py:172
-        save_video(keep, out + (".mp4" if args.use_mp4 else ".gif"), fps=args.output_fps)
-        log.info("wrote %s", out)
+        if lead:
+            save_video(keep, out + (".mp4" if args.use_mp4 else ".gif"), fps=args.output_fps)
+            log.info("wrote %s", out)
+        barrier(pipe.mesh)
         return
 
     prompt_list = load_prompts(args.prompt_file, args.prompt_index)
@@ -216,7 +254,7 @@ def main(args):
         output_dir, latents_dir = set_directory(args, prompt, data["conditioned_image_path"])
         cond_image = load_conditioning_image(data["conditioned_image_path"], latent_hw)
         frame_cb = viz = None
-        if args.save_frames:
+        if args.save_frames and lead:
             # per-frame PNGs (funcs.py:362-365 fifo/{i}.png)
             sink = VisualizationSink(output_dir)
 
@@ -241,8 +279,10 @@ def main(args):
         # videocrafter_main.py:230: video_frames[-new_video_length//2:]; the
         # unary minus binds inside the floor division, so odd N keeps ceil(N/2)
         keep = video[-args.new_video_length // 2:]
-        save_video(keep, out + (".mp4" if args.use_mp4 else ".gif"), fps=args.output_fps)
-        log.info("wrote %s", out)
+        if lead:
+            save_video(keep, out + (".mp4" if args.use_mp4 else ".gif"), fps=args.output_fps)
+            log.info("wrote %s", out)
+        barrier(pipe.mesh)
 
 
 def _entry():

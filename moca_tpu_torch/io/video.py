@@ -4,11 +4,13 @@ Port of moca_tpu/io/video.py: uint8 <-> [-1, 1] float conversions
 (funcs.py:565, 630-640), clip packing, mp4/gif writing, the n_samples grid
 video (funcs.py:600-612), the concept image at latent resolution
 (videocrafter_main.py:90-98), conditioning-image batches (funcs.py:576-597)
-and mp4 frame loading (funcs.py:538-574). The optional C++ `fastio`
-extension of the reference is not ported: the numpy paths compute the same
-values. PIL, cv2 and imageio are
-imported inside the functions that use them, so the package imports without
-them.
+and mp4 frame loading (funcs.py:538-574). uint8 -> float goes through the host
+library of native/ (io/fastio.py, built at first use) where it is
+available, else numpy. Unlike the reference, float -> uint8 and the clip
+packing stay on numpy: on the H100's host the library was no faster there
+(chip_smoke.py phase 6 times all three; PERF.md). PIL, cv2
+and imageio are imported inside the functions that use them, so the package
+imports without them.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from moca_tpu_torch.io import fastio
 
 
 def tensor_to_uint8(frame: np.ndarray) -> np.ndarray:
@@ -27,6 +31,8 @@ def tensor_to_uint8(frame: np.ndarray) -> np.ndarray:
 
 def uint8_to_tensor(img: np.ndarray) -> np.ndarray:
     """uint8 -> [-1, 1] float32 (funcs.py:565)."""
+    if fastio.available():
+        return fastio.uint8_to_float(img)
     return (np.asarray(img).astype(np.float32) / 255.0 - 0.5) * 2.0
 
 

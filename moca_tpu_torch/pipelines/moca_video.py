@@ -25,8 +25,17 @@ Port of moca_tpu/pipelines/moca_video.py:
     [1, ...] broadcast over B), so stream b equals a B=1 run of prompt b with
     the same noise; the base-latent cache holds the B batch. Masks, DAVIS,
     multiprompts, a provider and viz carry per-stream host state and need
-    B = 1, as in the reference.
-Not yet ported: the device mesh.
+    B = 1, as in the reference;
+  * a `mesh` (parallel/mesh.py, one process a GPU): every rank runs the
+    whole loop with the same noise, and only the U-Net's 2*R*B rows (padded
+    to the next multiple of the mesh size, :113-115) and the head decode's
+    rows (where they tile the mesh, :191-194) are split over the ranks and
+    gathered. Rank 0 alone writes the base-latent cache and the snapshot
+    (a barrier follows each write; every rank reads them), runs the
+    open-vocab provider and broadcasts its masks, and feeds `viz`;
+  * the stages' seconds in a `StepTimer` (utils/profiling.py), read as
+    `timings`, with one `{"profile": ...}` line at the end when
+    MOCA_TPU_PROFILE=1 (:360-507).
 
 Noise: every draw goes through `normal(tag, shape)` (sampling/ddim.py):
 ("base", ...) for the base sample, ("queue",) for the queue and
@@ -65,7 +74,10 @@ import torch
 
 from moca_tpu_torch.io.segmentation import latent_to_uint8_frame
 from moca_tpu_torch.models.latent_diffusion import LatentDiffusion
-from moca_tpu_torch.pipelines.t2v import T2VPipeline, record_stage
+from moca_tpu_torch.parallel.mesh import (
+    barrier, broadcast_from_lead, is_lead, make_sharded_unet_apply, map_tiled_rows,
+)
+from moca_tpu_torch.pipelines.t2v import T2VPipeline
 from moca_tpu_torch.sampling.ddim import GeneratorNormal, Normal, make_cfg_eps_fn
 from moca_tpu_torch.sampling.fifo import (
     FIFOPlan, advance_prompt_index, fifo_step, make_fifo_plan, prepare_queue,
@@ -73,6 +85,7 @@ from moca_tpu_torch.sampling.fifo import (
 )
 from moca_tpu_torch.sampling.moca import MoCAConfig
 from moca_tpu_torch.schedule import make_schedule
+from moca_tpu_torch.utils.profiling import StepTimer
 
 SNAPSHOT = "fifo_state.npz"
 
@@ -92,6 +105,7 @@ class MoCAVideoPipeline:
     lookahead_denoising: bool = True  # (:252)
     moca: MoCAConfig = dataclasses.field(default_factory=MoCAConfig)
     use_scale: bool = True
+    mesh: Optional[object] = None     # parallel.mesh.make_mesh: split the rows over ranks
     decode_batch: int = 8             # head frames per batched VAE call
     checkpoint_every: int = 0         # snapshot every N iterations; 0 = off
     tail_mode: str = "freeinit"       # funcs.py:86-99 | funcs_mp.py:39-46
@@ -106,13 +120,18 @@ class MoCAVideoPipeline:
                                              self.num_partitions, self.lookahead_denoising)
         self.base = T2VPipeline(self.model, self.sch, self.tokenizer,
                                 guidance_scale=self.guidance_scale, fps=self.fps,
-                                uncond_type=self.uncond_type)
-        self.timings: dict = {}
+                                uncond_type=self.uncond_type, mesh=self.mesh)
+        self.timer = StepTimer()
+
+    @property
+    def timings(self) -> dict:
+        """Seconds of the last call's stages."""
+        return self.timer.totals()
 
     def _stage(self, name: str, t0: float, sync: bool = True) -> float:
         """Add the time since t0 to stage `name` (device work included
         unless `sync` is off)."""
-        return record_stage(self.timings, name, t0, self.model.device, sync)
+        return self.timer.record(name, t0, self.model.device, sync)
 
     def _num_low_t_slots(self) -> int:
         """Queue slots with t <= inject_threshold (a prefix: the queue's
@@ -122,8 +141,10 @@ class MoCAVideoPipeline:
     def _fifo_iteration(self, latents, ctx, uc, cond, mask_queue, masks_are_davis, gamma,
                         normal, i, want_pred=False, anchor=None):
         """(queue, ...) -> (shifted queue, head latent, low-t pred_x0 or None)."""
-        eps_fn = make_cfg_eps_fn(self.model.apply_unet, ctx, uc, self.guidance_scale,
-                                 fps=self.fps)
+        unet_apply = self.model.apply_unet
+        if self.mesh is not None:
+            unet_apply = make_sharded_unet_apply(unet_apply, self.mesh)
+        eps_fn = make_cfg_eps_fn(unet_apply, ctx, uc, self.guidance_scale, fps=self.fps)
         result = fifo_step(
             eps_fn, self.sch, self.plan, self.moca, latents, normal, ("fifo", i),
             cond_image=cond, masks=mask_queue, masks_are_davis=masks_are_davis, gamma=gamma,
@@ -139,8 +160,9 @@ class MoCAVideoPipeline:
         return shifted, head, pred_low
 
     def _decode_heads(self, heads):
-        """[K, h, w, 4] head latents -> [K, H, W, 3] frames in [-1, 1]."""
-        return torch.clamp(self.model.decode_single(heads), -1.0, 1.0)
+        """[K, h, w, 4] head latents -> [K, H, W, 3] frames in [-1, 1], the K
+        rows split over the mesh where they tile it."""
+        return torch.clamp(map_tiled_rows(self.model.decode_single, self.mesh, heads), -1.0, 1.0)
 
     def _base_latents(self, prompts: List[str], normal: Normal, hw: Tuple[int, int],
                       latents_dir: Optional[str]) -> torch.Tensor:
@@ -150,6 +172,7 @@ class MoCAVideoPipeline:
         if latents_dir:
             os.makedirs(latents_dir, exist_ok=True)
             cache = os.path.join(latents_dir, f"{self.num_inference_steps}.npz")
+            barrier(self.mesh)  # no rank looks before every rank has
             if os.path.exists(cache):
                 cached = np.load(cache)["latents"]
                 if cached.shape[0] == len(prompts):
@@ -157,7 +180,9 @@ class MoCAVideoPipeline:
         latents, x_T = self.base.sample_latents(prompts, normal, latent_shape=hw + (4,),
                                                 frames=self.video_length)
         if cache:
-            np.savez(cache, latents=latents.cpu().numpy(), x_T=x_T.cpu().numpy())
+            if is_lead(self.mesh):
+                np.savez(cache, latents=latents.cpu().numpy(), x_T=x_T.cpu().numpy())
+            barrier(self.mesh)
         return latents
 
     @staticmethod
@@ -177,15 +202,19 @@ class MoCAVideoPipeline:
         (ddim.py:592-606 segments every t <= 300 frame). The queue shifts
         `lag` times between that iteration and the one that consumes the
         masks, so the mask of slot j lands at slot j - lag (slots shifted out
-        are dropped). Host only, no device call but the event's wait.
+        are dropped). Host only, no device call but the event's wait. Under
+        a mesh only rank 0 calls the provider; the others return no masks
+        and take rank 0's from the broadcast in `pulled`.
         Returns (mask queue [1, Q, h, w, 1] numpy, counter, seconds)."""
         t0 = time.perf_counter()
         host, event = pending
+        h, w = hw
+        new_masks = np.zeros((1, self.plan.queue_length, h, w, 1), np.float32)
+        if not is_lead(self.mesh):
+            return new_masks, counter + host.shape[1], 0.0
         if event is not None:
             event.synchronize()
         pred = host.float().numpy()  # [1, k_low, h, w, C]
-        h, w = hw
-        new_masks = np.zeros((1, self.plan.queue_length, h, w, 1), np.float32)
         for j in range(pred.shape[1]):
             m = mask_provider(counter, latent_to_uint8_frame(pred[0, j]), target)
             counter += 1
@@ -238,7 +267,7 @@ class MoCAVideoPipeline:
                                  "run those modes per-prompt (B=1)")
         device = self.model.device
         normal = GeneratorNormal(seed, device) if normal is None else normal
-        self.timings = {}
+        self.timer = StepTimer()
         h, w = height // 8, width // 8
         t0 = time.perf_counter()
 
@@ -354,16 +383,19 @@ class MoCAVideoPipeline:
                     payload["seg_pending_pred"] = host.cpu().numpy()
             if hasattr(normal, "get_state"):
                 payload["normal_state"] = normal.get_state().numpy()
-            np.savez(snapshot + ".tmp.npz", **payload)
-            os.replace(snapshot + ".tmp.npz", snapshot)
+            if is_lead(self.mesh):
+                np.savez(snapshot + ".tmp.npz", **payload)
+                os.replace(snapshot + ".tmp.npz", snapshot)
+            barrier(self.mesh)
             return self._stage("checkpoint", t0, sync=False)
 
         def pulled(result):
-            """(mask queue on the device, counter) from a provider sweep; its
-            own seconds go to mask_provider, which overlaps fifo_iteration."""
+            """(mask queue on the device, rank 0's under a mesh, counter) from
+            a provider sweep; its own seconds go to mask_provider, which
+            overlaps fifo_iteration."""
             new_masks, counter, seconds = result
-            self.timings["mask_provider"] = self.timings.get("mask_provider", 0.0) + seconds
-            return self._to_device(new_masks), counter
+            self.timer.add("mask_provider", seconds)
+            return broadcast_from_lead(self.mesh, self._to_device(new_masks)), counter
 
         sweep = functools.partial(self._pull_masks, mask_provider=mask_provider,
                                   target=seg_target, hw=(h, w))
@@ -381,7 +413,7 @@ class MoCAVideoPipeline:
                 latents, head, pred_low = self._fifo_iteration(
                     latents, step_ctx, uc, cond, mask_queue, masks is not None, gamma, normal, i,
                     want_pred=seg_mode or viz is not None, anchor=anchor)
-                if viz is not None:
+                if viz is not None and is_lead(self.mesh):
                     k = pred_low.shape[1]
                     viz.moca_step(
                         i, pred_low[0].float().cpu().numpy(), self.plan.timesteps[:k],
@@ -406,8 +438,12 @@ class MoCAVideoPipeline:
             # provider, so its calls and state do not depend on the mode
             _, seg_counter = pulled(sweep(seg_pending, counter=seg_counter, lag=2))
         flush(t0)
-        if snapshot and os.path.exists(snapshot):
-            os.remove(snapshot)  # completed: drop the snapshot
+        if snapshot:  # completed: drop the snapshot
+            if is_lead(self.mesh) and os.path.exists(snapshot):
+                os.remove(snapshot)
+            barrier(self.mesh)
+        if is_lead(self.mesh):
+            self.timer.report()  # one JSON line when MOCA_TPU_PROFILE=1
         if B == 1:
             return frames_out
         return [frames_out[b::B] for b in range(B)]

@@ -4,7 +4,10 @@ Port of moca_tpu/pipelines/t2v.py: the reference's `base_ddim_sampling` /
 `batch_ddim_sampling` (scripts/evaluation/funcs.py:120-241) for one prompt
 or B prompts in one batch, the CFG variants (`uc_type`, temporal guidance,
 `uncond_type`), ancestral DDPM when `num_steps <= 0`, and the FreeInit
-re-sampling loop (`sample_with_freeinit`). Not yet ported: the device mesh.
+re-sampling loop (`sample_with_freeinit`). With a `mesh`
+(parallel/mesh.py), the 2·B CFG rows of each U-Net call are split over the
+ranks where they tile the mesh (else every rank runs them all), and so are
+the B·T frame rows of the decode.
 
 Noise: every draw goes through `normal(tag, shape)` (sampling/ddim.py),
 shared across the prompt batch: ("base", ...) for a DDIM sample,
@@ -23,20 +26,11 @@ import torch
 
 from moca_tpu_torch import freeinit
 from moca_tpu_torch.models.latent_diffusion import LatentDiffusion
+from moca_tpu_torch.parallel.mesh import make_sharded_unet_apply, map_tiled_rows
 from moca_tpu_torch.sampling.ddim import GeneratorNormal, Normal, ddim_sample, make_cfg_eps_fn
 from moca_tpu_torch.sampling.ddpm import ddpm_sample
 from moca_tpu_torch.schedule import DiffusionSchedule, make_schedule
-
-
-def record_stage(timings: dict, name: str, t0: float, device: torch.device,
-                 sync: bool = True) -> float:
-    """Add the seconds since t0 to timings[name], the device's queued work
-    included unless `sync` is off; returns the time now."""
-    if sync and device.type == "cuda":
-        torch.cuda.synchronize(device)
-    now = time.perf_counter()
-    timings[name] = timings.get(name, 0.0) + now - t0
-    return now
+from moca_tpu_torch.utils.profiling import StepTimer
 
 
 @dataclasses.dataclass(eq=False)
@@ -49,20 +43,26 @@ class T2VPipeline:
     uc_type: Optional[str] = None          # ddim.py:303-311 CFG variants
     temporal_cfg_scale: Optional[float] = None  # funcs.py:121 temporal guidance
     uncond_type: str = "empty_seq"         # ddpm3d.py:397; funcs.py:128-134
-    # seconds of the last call's stages: encode, sample, decode
-    timings: dict = dataclasses.field(default_factory=dict, init=False, repr=False)
+    mesh: Optional[object] = None          # parallel.mesh.make_mesh: split the rows over ranks
+    # the last call's stages: encode, sample, decode
+    timer: StepTimer = dataclasses.field(default_factory=StepTimer, init=False, repr=False)
+
+    @property
+    def timings(self) -> dict:
+        """Seconds of the last call's stages."""
+        return self.timer.totals()
 
     @classmethod
     def build(cls, model: LatentDiffusion, tokenizer, num_steps: int = 50, eta: float = 1.0,
               use_scale: bool = True, guidance_scale: float = 12.0, fps: int = 10,
               uc_type: Optional[str] = None, temporal_cfg_scale: Optional[float] = None,
-              uncond_type: str = "empty_seq", **sched_kw) -> "T2VPipeline":
+              uncond_type: str = "empty_seq", mesh=None, **sched_kw) -> "T2VPipeline":
         """num_steps <= 0 selects ancestral DDPM (inference.py:28); the DDIM
         arrays still take a valid length."""
         sch = make_schedule(ddim_num_steps=max(num_steps, 1), ddim_eta=eta,
                             use_scale=use_scale, device=model.device, **sched_kw)
         return cls(model, sch, tokenizer, guidance_scale, fps, uc_type=uc_type,
-                   temporal_cfg_scale=temporal_cfg_scale, uncond_type=uncond_type)
+                   temporal_cfg_scale=temporal_cfg_scale, uncond_type=uncond_type, mesh=mesh)
 
     def encode_prompts(self, prompts: Sequence[str]) -> torch.Tensor:
         return self.model.encode_tokens(self.tokenizer(list(prompts)))
@@ -88,7 +88,10 @@ class T2VPipeline:
         return ctx, uc
 
     def _eps_fn(self, ctx, uc):
-        return make_cfg_eps_fn(self.model.apply_unet, ctx, uc, self.guidance_scale,
+        unet_apply = self.model.apply_unet
+        if self.mesh is not None:
+            unet_apply = make_sharded_unet_apply(unet_apply, self.mesh, skip_indivisible=True)
+        return make_cfg_eps_fn(unet_apply, ctx, uc, self.guidance_scale,
                                fps=self.fps, uc_type=self.uc_type,
                                temporal_guidance_scale=self.temporal_cfg_scale)
 
@@ -115,8 +118,11 @@ class T2VPipeline:
     def _decode(self, latents: torch.Tensor) -> torch.Tensor:
         """[B, T, h, w, 4] -> [B, T, H, W, 3] clipped to [-1, 1]: the B*T
         frame rows through the per-frame decoder (decode_first_stage_2DAE,
-        ddpm3d.py:556-562)."""
-        return torch.clamp(self.model.decode_latents(latents), -1.0, 1.0)
+        ddpm3d.py:556-562), split over the mesh where they tile it."""
+        b, t = latents.shape[:2]
+        flat = latents.reshape((b * t, 1) + tuple(latents.shape[2:]))
+        x = map_tiled_rows(self.model.decode_latents, self.mesh, flat)
+        return torch.clamp(x.reshape((b, t) + tuple(x.shape[2:])), -1.0, 1.0)
 
     @torch.inference_mode()
     def __call__(self, prompt, seed: int = 123, normal: Optional[Normal] = None,
@@ -134,7 +140,7 @@ class T2VPipeline:
         b = len(prompts)
         device = self.model.device
         normal = GeneratorNormal(seed, device) if normal is None else normal
-        self.timings = {}
+        self.timer = StepTimer()
         t0 = time.perf_counter()
         ctx, uc = self._contexts(prompts)
         if image_tokens is not None:
@@ -143,16 +149,16 @@ class T2VPipeline:
             ctx = torch.cat([ctx, image_tokens], dim=1)
             if uc is not None:
                 uc = torch.cat([uc, torch.zeros_like(image_tokens)], dim=1)
-        t0 = record_stage(self.timings, "encode", t0, device)
+        t0 = self.timer.record("encode", t0, device)
         latent_shape = (height // 8, width // 8, 4)
         if use_ddpm:
             latents = ddpm_sample(self._eps_fn(ctx, uc), self.sch, (b, frames) + latent_shape,
                                   normal)
         else:
             latents, _ = self.sample_latents_from_context(ctx, uc, normal, latent_shape, frames)
-        t0 = record_stage(self.timings, "sample", t0, device)
+        t0 = self.timer.record("sample", t0, device)
         decoded = self._decode(latents)
-        record_stage(self.timings, "decode", t0, device)
+        self.timer.record("decode", t0, device)
         return decoded[0] if single else decoded
 
     @torch.inference_mode()
@@ -167,11 +173,11 @@ class T2VPipeline:
         utils/freeinit_utils.py:7-47). Returns [T, H, W, 3] in [-1, 1]."""
         device = self.model.device
         normal = GeneratorNormal(seed, device) if normal is None else normal
-        self.timings = {}
+        self.timer = StepTimer()
         t0 = time.perf_counter()
         h, w = height // 8, width // 8
         ctx, uc = self._contexts([prompt])
-        t0 = record_stage(self.timings, "encode", t0, device)
+        t0 = self.timer.record("encode", t0, device)
         latents, _ = self.sample_latents_from_context(ctx, uc, normal, (h, w, 4), frames,
                                                       tag=("freeinit", 0))
         lpf = freeinit.get_freq_filter((frames, h, w), filter_type, 1, d_s, d_t,
@@ -186,9 +192,9 @@ class T2VPipeline:
             mixed = freeinit.freq_mix_3d(noised.movedim(-1, 1), mix.movedim(-1, 1), lpf)
             latents, _ = ddim_from_xt(self, (ctx, uc), mixed.movedim(1, -1), normal,
                                       tag=("freeinit", k))
-        t0 = record_stage(self.timings, "sample", t0, device)
+        t0 = self.timer.record("sample", t0, device)
         decoded = self._decode(latents)[0]
-        record_stage(self.timings, "decode", t0, device)
+        self.timer.record("decode", t0, device)
         return decoded
 
 

@@ -20,6 +20,7 @@ import imageio
 import jax
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 from test_torch_cli import TINY_YAML, _write, tiny_ckpt  # noqa: F401  (fixture)
 from test_torch_davis import models  # noqa: F401  (fixture)
@@ -174,13 +175,15 @@ def test_batch_cli_freeinit_and_ddpm(models, t2v_pipe, tmp_path, monkeypatch, mo
     np.testing.assert_allclose(np.stack(written["a red fox.mp4"][0]), ref.numpy(), atol=1e-6)
 
 
-def test_batch_cli_loader_and_refusals(tiny_ckpt, tmp_path):  # noqa: F811
+def test_batch_cli_loader_and_refusals(tiny_ckpt, tmp_path, monkeypatch):  # noqa: F811
     """load_pipeline on the shrunk YAML and checkpoint carries the flags
     (steps, eta, guidance, temporal guidance, fps) and the YAML's
     uncond_type ('zero_embed', which cli.main now takes too) into the
-    pipeline, and main writes the video; --mesh, --bs with n_samples,
-    FreeInit or --mode i2v (also on an i2v config), and --mode i2v without
-    --cond_image_dir are refused (the i2v loader: tests/test_torch_i2v.py)."""
+    pipeline, and main writes the video; with --mesh 1,1 main starts and
+    ends a one-rank group on the CPU and writes the same mp4; --mesh 1,2
+    without WORLD_SIZE=2, --bs with n_samples, FreeInit or --mode i2v (also
+    on an i2v config), and --mode i2v without --cond_image_dir are refused
+    (the i2v loader: tests/test_torch_i2v.py)."""
     cfg_path, _, sd = tiny_ckpt
     zero = tmp_path / "zero.yaml"
     zero.write_text(TINY_YAML.replace("uncond_type: empty_seq", "uncond_type: zero_embed"))
@@ -202,6 +205,24 @@ def test_batch_cli_loader_and_refusals(tiny_ckpt, tmp_path):  # noqa: F811
     assert float(pipe.sch.ddim_sigmas[1]) > 0 and pipe.model.device.type == "cpu"
     inf.main(args, pipe=pipe)
     assert os.listdir(tmp_path / "out") == ["a cat.mp4"]
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    loader, loaded = inf.load_pipeline, []
+
+    def load_on_cpu(a):
+        loaded.append(loader(a, device="cpu"))
+        return loaded[-1]
+
+    monkeypatch.setattr(inf, "load_pipeline", load_on_cpu)
+    mesh_args = inf.build_parser().parse_args(
+        [a if a != str(tmp_path / "out") else str(tmp_path / "mesh") for a in base]
+        + ["--ddim_steps", "3", "--ddim_eta", "0.5", "--unconditional_guidance_scale", "6",
+           "--unconditional_guidance_scale_temporal", "2", "--fps", "9", "--precision", "fp32",
+           "--mesh", "1,1"])
+    inf.main(mesh_args)
+    assert loaded[0].mesh.shape == (1, 1) and not torch.distributed.is_initialized()
+    assert ((tmp_path / "mesh" / "a cat.mp4").read_bytes()
+            == (tmp_path / "out" / "a cat.mp4").read_bytes())
+    monkeypatch.setattr(inf, "load_pipeline", loader)
     margs = tcli.build_parser().parse_args(["--ckpt_path", str(tmp_path / "model.ckpt"),
                                             "--config", str(zero), "--bpe_path", str(bpe)])
     assert tcli.load_pipeline(margs, device="cpu").uncond_type == "zero_embed"
@@ -212,7 +233,7 @@ def test_batch_cli_loader_and_refusals(tiny_ckpt, tmp_path):  # noqa: F811
     refusals = [(["--config", str(i2v), "--mode", "i2v", "--bs", "2"], ValueError,
                  "plain base sampling"),
                 (["--mode", "i2v"], ValueError, "cond_image_dir"),
-                (["--mesh", "1,2"], NotImplementedError, "item 8"),
+                (["--mesh", "1,2"], ValueError, "DP\\*FIFO = 2 ranks, but WORLD_SIZE is 1"),
                 (["--bs", "2", "--n_samples", "2"], ValueError, "plain base sampling"),
                 (["--bs", "2", "--freeinit_iters", "2"], ValueError, "plain base sampling")]
     for extra, exc, match in refusals:

@@ -386,7 +386,11 @@ def test_cli_unmocked_checkpoint_to_video(tiny_ckpt, tmp_path, monkeypatch):
     assert _frame_count(tmp_path / "out/cat/a cat dog.mp4") == 1  # ceil(2 / 2)
 
 
-def test_cli_help_runs_and_mesh_is_refused():
+def test_cli_help_runs_and_mesh_is_refused(models, tmp_path, monkeypatch):  # noqa: F811
+    """--help of both entry points; the JAX CLI's flags and defaults;
+    --mesh 1,2 without WORLD_SIZE=2 is refused before anything loads, and
+    --mesh 1,1 runs on a one-rank group that main starts and ends, writing
+    the same mp4 as no --mesh."""
     for module in ("moca_tpu_torch.cli.main", "moca_tpu_torch.cli"):
         out = subprocess.run([sys.executable, "-m", module, "--help"], cwd=ROOT,
                              capture_output=True, text=True, timeout=120,
@@ -395,5 +399,31 @@ def test_cli_help_runs_and_mesh_is_refused():
     jflags = {a.dest: a.default for a in jcli.build_parser()._actions}
     tflags = {a.dest: a.default for a in tcli.build_parser()._actions}
     assert tflags == jflags  # the same flags and defaults
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match=r"DP\*FIFO = 2 ranks, but WORLD_SIZE is 1"):
         tcli.main(tcli.build_parser().parse_args(["--mesh", "1,2"]))
+    assert not torch.distributed.is_initialized()
+
+    cond = tmp_path / "cat.png"
+    Image.fromarray(np.full((16, 16, 4), 128, np.uint8), "RGBA").save(cond)
+    csv = tmp_path / "prompts.csv"
+    csv.write_text("prompt,conditioned_object,conditioned_image_path,conditioned_prompt,gamma\n"
+                   f"a red fox,cat,{cond},a cat,0.4\n")
+    argv = _common_args(2) + ["--prompt_file", str(csv), "--output_dir", "out",
+                              "--no_save_frames"]
+    kw = dict(video_length=F, num_partitions=N, new_video_length=2, guidance_scale=7.5)
+    pipes = []
+
+    def load(a):
+        pipes.append(MoCAVideoPipeline(models[1], HashTokenizer(), mesh=tcli.parse_mesh(a), **kw))
+        return pipes[-1]
+
+    monkeypatch.setattr(tcli, "load_pipeline", load)
+    for run, extra in (("plain", []), ("mesh", ["--mesh", "1,1"])):
+        (tmp_path / run).mkdir()
+        monkeypatch.chdir(tmp_path / run)
+        tcli.main(tcli.build_parser().parse_args(argv + extra))
+        assert not torch.distributed.is_initialized()
+    assert pipes[0].mesh is None and pipes[1].mesh.shape == (1, 1)
+    video = "out/cat/a red fox.mp4"
+    assert (tmp_path / "mesh" / video).read_bytes() == (tmp_path / "plain" / video).read_bytes()

@@ -2,10 +2,10 @@
 
 A fresh interpreter imports every module of moca_tpu_torch and everything
 chip_smoke.py imports, then lists the loaded modules: no JAX, nothing of the
-JAX package, and no image or YAML library (PIL, cv2, imageio, yaml), which
-the GPU machine need not have; the port imports those inside the functions
-that use them. And the port's entry points refuse to run without a GPU
-unless the caller names the CPU.
+JAX package, and no image, plot or YAML library (PIL, cv2, imageio,
+matplotlib, yaml), which the GPU machine need not have; the port imports
+those inside the functions that use them. And the port's entry points
+refuse to run without a GPU unless the caller names the CPU.
 """
 
 import ast
@@ -49,7 +49,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_moca_tpu():
             "moca_tpu_torch.sampling.ddpm", "moca_tpu_torch.models.clip_vision",
             "moca_tpu_torch.models.ip_resampler", "moca_tpu_torch.eval.metrics",
             "moca_tpu_torch.eval.fvd", "moca_tpu_torch.eval.i3d", "moca_tpu_torch.eval.vbench",
-            "moca_tpu_torch.cli.eval_sweep"} <= set(port)
+            "moca_tpu_torch.cli.eval_sweep", "moca_tpu_torch.parallel.mesh",
+            "moca_tpu_torch.io.fastio", "moca_tpu_torch.utils.profiling",
+            "moca_tpu_torch.utils.ema", "moca_tpu_torch.utils.visualization"} <= set(port)
     modules = port + _chip_smoke_imports() + ["chip_smoke"]
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}:\n"
@@ -62,7 +64,7 @@ def test_port_and_chip_smoke_import_no_jax_and_no_moca_tpu():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "moca_tpu", "PIL", "cv2", "imageio",
-                                  "yaml")]
+                                  "yaml", "matplotlib")]
     assert not bad, bad
     assert "moca_tpu_torch.ops.flash_attention" in loaded
 
