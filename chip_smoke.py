@@ -18,12 +18,19 @@ Phases, each failing loudly (non-zero exit, no result line):
      plain versions and timed on each of their designs (mma.sync, wgmma with
      64- and 128-row kv tiles); their rows carry the design the library
      chose at that shape (`path`) and every design's time (`path_ms`). K1
-     and K4 also run the adversarial softmax inputs on every design;
+     and K4 also run the adversarial softmax inputs on every design. The
+     fp32 path of every kernel is held the same way to its plain version in
+     full fp32 (FP32_KERNEL_TOL, the same planted faults) at the shapes the
+     fp32 runs (phases 3 and 14) give it, and timed beside its bf16 path on
+     the same inputs, SDPA (K3: multi_head_attention_forward) in fp32 and a
+     bound at the FP32 FFMA peak;
   3. check the port's U-Net with the kernels (bf16, GPU) against its plain
      path (fp32, CPU) on a small input, three times: as it ships; with
      MOCA_TPU_FA_FUSED_QKV=1 MOCA_TPU_FA_ONEPASS=1 and a 154-token context
      (K3, K4); at num_head_channels=32 (K2 at d=32, its launch counts set
-     to 0 just before and read just after);
+     to 0 just before and read just after); then the fp32 U-Net on the card
+     (every kernel's fp32 path) against the same CPU forward, as it ships
+     and with both switches (FP32_UNET_REL_TOL);
   4. drive the main path twice: MoCAVideoPipeline at the shipped
      VideoCrafter2 widths, random bf16 weights, 512x320, f=16, n=4 with
      lookahead, guidance 12, concept image, conditioned prompt and masks,
@@ -93,14 +100,30 @@ Phases, each failing loudly (non-zero exit, no result line):
      and the gather's ms are printed (two ranks share one card's SMs: no
      speedup is expected); (b) moca_tpu_torch.cli.main --mesh 1,1 in a child under
      torchrun's environment (env://, NCCL, one rank) at n=1, 2 new frames;
-     (c) --mesh 1,2 without WORLD_SIZE=2 must raise the ValueError.
+     (c) --mesh 1,2 without WORLD_SIZE=2 must raise the ValueError;
+ 14. the user scripts (moca_tpu_torch/cli/): (a) the acceptance
+     certification, cli.acceptance.main, on a synthetic full-size
+     checkpoint in the upstream layout (random fp32 weights from the seed,
+     written under build/ and deleted after (b)) and a four-merge BPE table,
+     fp32 by default, 512x320, f=16, n=ACCEPT_PARTITIONS with
+     ACCEPT_NEW_FRAMES new frames (cut from 4 and 16), --skip_oracles, its
+     own golden_frames.npz as the reference: exit 0 with convert,
+     tokenizer, golden and ssim ok and the fp32 paths of K1 and K2
+     launched; a planted fault (the golden frames rolled by W/4, or seeded
+     noise where random weights leave them too flat for that to read) must
+     fail `stage_ssim` on the same golden array; (b)
+     cli.generate_condition_images.main on two CSV rows at its defaults
+     (512x320, 50 steps, bf16): two RGBA PNGs of 512x320 that differ;
+     (c) cli.v2i and cli.convert_gifs on phase 6's 72 frames written as an
+     mp4 and a gif, held to io/video.py's reading frame for frame; (d)
+     cli.verify_drive on the card.
 Phase 6 also holds the host library's (io/fastio.py) conversions and
 packing of the 72 frames to numpy and times both (io/video.py takes the
 library's uint8 -> float only, the one it is faster at); phase 7's
 run with the provider runs with MOCA_TPU_PROFILE=1 and must print the
 pipeline's {"profile": ...} line with the JAX package's stage names.
 Phase 2 also holds K1 and K2 (and K3/K4, as the switches would send them)
-at every shape that phases 8-13 give them. Phases 4 and 6-13 set every
+at every shape that phases 8-14 give them. Phases 4 and 6-14 set every
 kernel's launch count to 0 just before each run and read it just after; every
 shape a kernel received must have been held to its plain version in phase 2.
 Every phase prints its seconds. Prints a JSON line of kernel measurements,
@@ -123,6 +146,7 @@ import sys
 import time
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM
+H100_FP32_FLOPS = 67e12   # FP32 FFMA peak outside the tensor cores, H100 SXM
 H100_BYTES_PER_S = 3.35e12
 # Largest relative L2 error of one output row (the 64-vector of one query and
 # head) against the plain version. Kernel and plain version round the
@@ -131,7 +155,18 @@ H100_BYTES_PER_S = 3.35e12
 # softmax scale, is off by far more, and every check plants those faults
 # through the kernel's inputs to show that it fails them.
 KERNEL_TOL = 2e-2
+# The fp32 paths against their plain versions in full fp32 (TF32 off), the
+# same row measure: both sum fp32 products in other orders (a few 1e-6
+# relative at the main path's shapes); plain TF32 products would round each
+# input to a 2^-11 (4.9e-4) unit, which the limit does not admit.
+FP32_KERNEL_TOL = 1e-4
 UNET_REL_TOL = 5e-2  # bf16 GPU forward vs fp32 CPU forward, relative to max |ref|
+# The fp32 U-Net on the card (its kernels' fp32 paths; fp32 convolutions in
+# TF32, torch.backends.cudnn.allow_tf32 as it stands, True; matmuls in full
+# fp32, allow_tf32 False) against the fp32 CPU forward, same measure: it read
+# 2.18e-4 as shipped and 2.28e-4 with both switches on an H100 80GB HBM3
+# (PERF.md), the TF32 convolutions' rounding; the limit is ~9x that.
+FP32_UNET_REL_TOL = 2e-3
 SEED = 0
 SEG_SLEEP_S = 0.2  # the stand-in detector's time per FIFO iteration
 # The switched full-width forward against the default one on the same input,
@@ -238,44 +273,79 @@ def max_row_rel_err(out, ref, d=64):
     return ((out - ref).norm(dim=1) / ref_norm.clamp_min(1e-6 * ref_norm.max())).max().item()
 
 
-def hold_to_plain(what, out, ref, faults=(), d=64):
-    """Fail unless out is finite and within KERNEL_TOL of ref, and every
-    planted fault is beyond it (rows of d values). Returns (row error,
-    smallest fault error)."""
+def kernel_tol(dtype):
+    import torch
+
+    return FP32_KERNEL_TOL if dtype == torch.float32 else KERNEL_TOL
+
+
+def hold_to_plain(what, out, ref, faults=(), d=64, tol=KERNEL_TOL):
+    """Fail unless out is finite and within `tol` of ref, and every planted
+    fault is beyond it (rows of d values). Returns (row error, smallest
+    fault error)."""
     import torch
 
     err = max_row_rel_err(out, ref, d)
-    if not torch.isfinite(out.float()).all() or not err <= KERNEL_TOL:
+    if not torch.isfinite(out.float()).all() or not err <= tol:
         fail(f"{what}: finite={bool(torch.isfinite(out.float()).all())}, "
-             f"row relative err {err} > {KERNEL_TOL}")
+             f"row relative err {err} > {tol}")
     fault_err = min((max_row_rel_err(f, ref, d) for f in faults), default=math.inf)
-    if not fault_err > KERNEL_TOL:
-        fail(f"{what}: a planted fault reads {fault_err} <= {KERNEL_TOL}; the check cannot "
+    if not fault_err > tol:
+        fail(f"{what}: a planted fault reads {fault_err} <= {tol}; the check cannot "
              f"tell it from a sound kernel")
     return err, fault_err
+
+
+def peak_flops(dtype):
+    """The peak of the unit a kernel path multiplies on: the bf16 tensor
+    cores, or the FP32 FFMA pipes for the fp32 paths (scalar products)."""
+    import torch
+
+    return H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
 
 
 def attention_bound_ms(q, k, v):
     """The least time of attention(q [B,Sq,H,D], k, v [B,Sk,H,D]) on the card:
     the larger of its bytes (each input read once, the output written once)
-    over the memory rate and its QK^T + PV tensor-core operations
-    (4*B*H*Sq*Sk*D) over the bf16 peak. Returns (ms, what bounds it)."""
+    over the memory rate and its QK^T + PV operations (4*B*H*Sq*Sk*D) over
+    the peak of the unit the path uses (`peak_flops`). Returns (ms, what
+    bounds it)."""
     b, sq, h, d = q.shape
     flops = 4 * b * h * sq * k.shape[1] * d
     nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    t_ops, t_bytes = flops / peak_flops(q.dtype), nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def fused_qkv_bound_ms(n, s, c):
+def fused_qkv_bound_ms(n, s, c, dtype):
     """The least time of K3's function on the card: its four C x C
-    projections and the S x S attention (8*N*S*C^2 + 4*N*S^2*C tensor-core
-    operations) over the bf16 peak, or x and o once, the four weights and
-    the bias (2*N*S*C + 4*C^2 + C bf16 values) over the memory rate."""
+    projections and the S x S attention (8*N*S*C^2 + 4*N*S^2*C operations)
+    over the peak of the unit the path uses, or x and o once, the four
+    weights and the bias (2*N*S*C + 4*C^2 + C values) over the memory rate."""
+    import torch
+
     flops = 8 * n * s * c * c + 4 * n * s * s * c
-    nbytes = (2 * n * s * c + 4 * c * c + c) * 2
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    nbytes = (2 * n * s * c + 4 * c * c + c) * (4 if dtype == torch.float32 else 2)
+    t_ops, t_bytes = flops / peak_flops(dtype), nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """fp32 matmuls in full fp32 (no TF32) while a plain version runs."""
+    import torch
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def fp32_launches(by_shape) -> int:
+    """Launches of a kernel's fp32 path in a {shape: n} tally."""
+    return sum(n for sh, n in by_shape.items() if sh[-1] == "fp32")
 
 
 def phase_build():
@@ -302,10 +372,19 @@ def phase_build():
               f"{max(regs, default=0)}, spills: {spills or 'none'}", flush=True)
 
 
-def _randn_bf16(shape, gen):
+def _randn(shape, gen, dtype=None):
+    """N(0, 1) on the card from `gen`, in `dtype` (bf16 by default)."""
     import torch
 
-    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype or torch.bfloat16)
+
+
+def _fp32_tag(dtype):
+    """The launch tally's shape suffix for `dtype`: ("fp32",) on the fp32
+    path, else ()."""
+    import torch
+
+    return ("fp32",) if dtype == torch.float32 else ()
 
 
 def _chunked(fn, q, k, v, chunk):
@@ -315,66 +394,80 @@ def _chunked(fn, q, k, v, chunk):
                       for i in range(0, q.shape[0], chunk)])
 
 
-def check_flash(b, sq, sk, h, gen, rows, reps=10, onepass=False):
+def check_flash(b, sq, sk, h, gen, rows, reps=10, onepass=False, dtype=None):
     """K1 (or K4 with `onepass`) at q [b, sq, h, 64] over k, v [b, sk, h, 64]
-    against its plain version (batch-chunked: the plain fp32 logits at b=256,
-    s=2560 would take 33.5 GB), on the design its library chooses and, held
-    to the same check and timed beside it, on each of the others."""
+    in `dtype` (bf16 by default) against its plain version (batch-chunked:
+    the plain fp32 logits at b=256, s=2560 would take 33.5 GB; in full fp32
+    for the fp32 path), on the design its library chooses and, held to the
+    same check and timed beside it, on each of the others. The fp32 path
+    has one design; its row also carries the bf16 path's time on the same
+    inputs (`bf16_ms`)."""
     import torch
     import torch.nn.functional as F
     from moca_tpu_torch.ops import flash_attention as fa
 
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
+    tol, tag = kernel_tol(dtype), _fp32_tag(dtype)
     kernel = fa.flash_attention_onepass if onepass else fa.flash_attention
     plain = fa.flash_attention_onepass_plain if onepass else fa.attention_plain
     lib_name = "onepass" if onepass else "flash"
-    label = "K4 flash_attention_onepass" if onepass else "K1 flash_attention"
-    path = fa.attention_path(lib_name, b, sq, sk, h, 64)
-    q, k, v = (_randn_bf16((b, s, h, 64), gen) for s in (sq, sk, sk))
+    label = ("K4 flash_attention_onepass" if onepass else "K1 flash_attention") + " fp32" * fp32
+    path = "fp32_ffma" if fp32 else fa.attention_path(lib_name, b, sq, sk, h, 64)
+    q, k, v = (_randn((b, s, h, 64), gen, dtype) for s in (sq, sk, sk))
     chunk = max(1, (2 << 30) // (h * sq * sk * 4))
     out = kernel(q, k, v)
     torch.cuda.synchronize()
-    ref = _chunked(plain, q, k, v, chunk)
-    cut = sk - 64  # planted faults: the last kv tile left out; the scale halved
+    with full_fp32():
+        ref = _chunked(plain, q, k, v, chunk)
+    cut = sk - 64  # planted faults: the last 64 kv rows left out; the scale halved
     faults = (kernel(q, k[:, :cut].contiguous(), v[:, :cut].contiguous()), kernel(q * 0.5, k, v))
-    rel, fault_rel = hold_to_plain(f"{kernel.__name__} [{b},{sq},{sk},{h},64] ({path})", out,
-                                   ref, faults)
+    rel, fault_rel = hold_to_plain(f"{label} [{b},{sq},{sk},{h},64] ({path})", out, ref, faults,
+                                   tol=tol)
     del faults
     err = (out.float() - ref.float()).abs().max().item()
     ms = cuda_ms(lambda: kernel(q, k, v), reps)
-    path_ms = {}
-    for other in fa.ATTENTION_PATHS:  # every design, held to the same check
+    path_ms, extra = {}, {}
+    for other in () if fp32 else fa.ATTENTION_PATHS:  # every design, held to the same check
         run = lambda: fa._attention_call(kernel, lib_name, q, k, v, path=other)
         other_out = run()
         faults = (fa._attention_call(kernel, lib_name, q, k[:, :cut].contiguous(),
                                      v[:, :cut].contiguous(), path=other),
                   fa._attention_call(kernel, lib_name, q * 0.5, k, v, path=other))
-        hold_to_plain(f"{kernel.__name__} [{b},{sq},{sk},{h},64] ({other})", other_out, ref,
-                      faults)
+        hold_to_plain(f"{label} [{b},{sq},{sk},{h},64] ({other})", other_out, ref, faults)
         del faults, other_out
         path_ms[other] = cuda_ms(run, reps)
-    plain_ms = cuda_ms(lambda: _chunked(plain, q, k, v, chunk), 2, warmup=1)
-    tr = lambda t: t.transpose(1, 2)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(tr(q), tr(k), tr(v)), reps)
+    if fp32:
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        extra["bf16_ms"] = cuda_ms(lambda: kernel(qb, kb, vb), reps)
+        del qb, kb, vb
+    with full_fp32():
+        plain_ms = cuda_ms(lambda: _chunked(plain, q, k, v, chunk), 2, warmup=1)
+        tr = lambda t: t.transpose(1, 2)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(tr(q), tr(k), tr(v)), reps)
     bms, by = attention_bound_ms(q, k, v)
     print(f"[{label} B={b} Sq={sq} Sk={sk} H={h} D=64 ({path})] row_rel_err {rel:.3e} "
-          f"(tol {KERNEL_TOL}, planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} "
+          f"(tol {tol}, planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} "
           f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
-          f"bound {bms:.4f} ms ({by}); designs "
-          f"{json.dumps({p_: round(t, 4) for p_, t in path_ms.items()})}", flush=True)
-    if onepass:
-        source, replaces = ("moca_tpu_torch/csrc/flash_onepass.cu",
-                            "moca_tpu/ops/flash_attention.py:713 (_fa_onepass_kernel)")
+          f"bound {bms:.4f} ms ({by}); "
+          + (f"bf16 path {extra['bf16_ms']:.4f} ms" if fp32 else
+             f"designs {json.dumps({p_: round(t, 4) for p_, t in path_ms.items()})}"), flush=True)
+    if fp32:
+        source = "moca_tpu_torch/csrc/attention_f32.cuh"
+    elif onepass:
+        source = "moca_tpu_torch/csrc/flash_onepass.cu"
     else:
         source = "moca_tpu_torch/csrc/flash_attention.cu"
-        small = sq == sk and sq <= 640  # the reference's _small_attention route
-        replaces = ("moca_tpu/ops/flash_attention.py:298 (_fa_small_kernel)" if small else
-                    "moca_tpu/ops/flash_attention.py:765 (_fa_kernel)")
-    rows.append(dict(name=f"{kernel.__name__} B={b} Sq={sq} Sk={sk} H={h} D=64", route="cuda",
-                     source=source, replaces=replaces,
-                     shape=(b, sq, sk, h, 64), max_abs_err=err, max_row_rel_err=rel,
+    small = not onepass and sq == sk and sq <= 640  # the reference's _small_attention route
+    replaces = ("moca_tpu/ops/flash_attention.py:713 (_fa_onepass_kernel)" if onepass else
+                "moca_tpu/ops/flash_attention.py:298 (_fa_small_kernel)" if small else
+                "moca_tpu/ops/flash_attention.py:765 (_fa_kernel)")
+    rows.append(dict(name=f"{kernel.__name__}{' fp32' * fp32} B={b} Sq={sq} Sk={sk} H={h} D=64",
+                     route="cuda", source=source, replaces=replaces,
+                     shape=(b, sq, sk, h, 64) + tag, max_abs_err=err, max_row_rel_err=rel,
                      fault_row_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
                      bound_ms=bms, bound_by=by, library_ms=lib_ms, path=path,
-                     path_ms=path_ms))
+                     path_ms=path_ms, **extra))
 
 
 def check_flash_adversarial(gen):
@@ -386,7 +479,7 @@ def check_flash_adversarial(gen):
     kernels = ((fa.flash_attention, "flash", fa.attention_plain),
                (fa.flash_attention_onepass, "onepass", fa.flash_attention_onepass_plain))
     for s, kind in itertools.product((256, 640), ("overflow", "underflow", "denom_overflow")):
-        q, k, v = (_randn_bf16((b, s, h, d), gen) for _ in range(3))
+        q, k, v = (_randn((b, s, h, d), gen) for _ in range(3))
         if kind == "overflow":
             q[0] = q[0].abs() + 40.0
             k[0] = k[0].abs() + 40.0
@@ -408,69 +501,96 @@ def check_flash_adversarial(gen):
                   f"(tol {KERNEL_TOL})", flush=True)
 
 
-def check_packed(n, s, c, gen, rows, reps=20, d=64):
+def check_packed(n, s, c, gen, rows, reps=20, d=64, dtype=None):
+    """K2 at [n, s, c] with heads of d in `dtype` (bf16 by default) against
+    its plain version (in full fp32 for the fp32 path, whose row also carries
+    the bf16 path's time on the same inputs)."""
+    import torch
     import torch.nn.functional as F
     from moca_tpu_torch.ops import flash_attention as fa
 
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
+    tol, tag = kernel_tol(dtype), _fp32_tag(dtype)
     heads = c // d
-    q, k, v = (_randn_bf16((n, s, c), gen) for _ in range(3))
+    q, k, v = (_randn((n, s, c), gen, dtype) for _ in range(3))
     out = fa.packed_attention(q, k, v, heads)
-    ref = fa.packed_attention_plain(q, k, v, heads)
+    with full_fp32():
+        ref = fa.packed_attention_plain(q, k, v, heads)
     v_cut = v.clone()
     v_cut[:, -1] = 0  # planted faults: the last key left out of PV; the scale halved
     faults = (fa.packed_attention(q, k, v_cut, heads), fa.packed_attention(q * 0.5, k, v, heads))
-    rel, fault_rel = hold_to_plain(f"packed_attention [{n},{s},{c}] d={d}", out, ref, faults, d)
+    rel, fault_rel = hold_to_plain(f"packed_attention{' fp32' * fp32} [{n},{s},{c}] d={d}", out,
+                                   ref, faults, d, tol=tol)
     del faults, v_cut
     err = (out.float() - ref.float()).abs().max().item()
     ms = cuda_ms(lambda: fa.packed_attention(q, k, v, heads), reps)
-    plain_ms = cuda_ms(lambda: fa.packed_attention_plain(q, k, v, heads), 3, warmup=1)
+    extra = {}
+    if fp32:
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        extra["bf16_ms"] = cuda_ms(lambda: fa.packed_attention(qb, kb, vb, heads), reps)
+        del qb, kb, vb
     split = lambda t: t.view(n, s, heads, d)
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        split(q).transpose(1, 2), split(k).transpose(1, 2), split(v).transpose(1, 2)), reps)
+    with full_fp32():
+        plain_ms = cuda_ms(lambda: fa.packed_attention_plain(q, k, v, heads), 3, warmup=1)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            split(q).transpose(1, 2), split(k).transpose(1, 2), split(v).transpose(1, 2)), reps)
     bms, by = attention_bound_ms(split(q), split(k), split(v))
-    print(f"[K2 packed_attention N={n} S={s} C={c} d={d}] row_rel_err {rel:.3e} (tol {KERNEL_TOL}, "
-          f"planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms "
-          f"bound {bms:.4f} ms ({by})", flush=True)
+    print(f"[K2 packed_attention{' fp32' * fp32} N={n} S={s} C={c} d={d}] row_rel_err {rel:.3e} "
+          f"(tol {tol}, planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} kernel "
+          f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound {bms:.4f} ms ({by})"
+          + (f"; bf16 path {extra['bf16_ms']:.4f} ms" if fp32 else ""), flush=True)
     if d != 64:
         replaces = "moca_tpu/ops/flash_attention.py:614 (_packed_tiny_kernel)"
     elif c == 320:
         replaces = "moca_tpu/ops/flash_attention.py:614 (_packed_slice_kernel)"
     else:
         replaces = "moca_tpu/ops/flash_attention.py:559 (_packed_lane_kernel)"
-    rows.append(dict(name=f"packed_attention N={n} S={s} C={c}" + (f" d={d}" if d != 64 else ""),
+    rows.append(dict(name=f"packed_attention{' fp32' * fp32} N={n} S={s} C={c}"
+                     + (f" d={d}" if d != 64 else ""),
                      route="cuda", source="moca_tpu_torch/csrc/packed_attention.cu",
-                     replaces=replaces, shape=(n, s, c, heads),
+                     replaces=replaces, shape=(n, s, c, heads) + tag,
                      max_abs_err=err, max_row_rel_err=rel,
                      fault_row_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bms, bound_by=by, library_ms=lib_ms))
+                     bound_ms=bms, bound_by=by, library_ms=lib_ms, **extra))
 
 
-def check_fused(n, s, c, gen, rows, reps=10):
-    """K3 at x [n, s, c] with weights N(0, 1/C), so that q, k, v and the
-    logits are O(1), against its plain version. Planted faults: Wq halved,
-    and the last head's Wv rows zeroed."""
+def check_fused(n, s, c, gen, rows, reps=10, dtype=None):
+    """K3 at x [n, s, c] in `dtype` (bf16 by default) with weights
+    N(0, 1/C), so that q, k, v and the logits are O(1), against its plain
+    version (in full fp32 for the fp32 path, whose row also carries the bf16
+    path's time on the same inputs). Planted faults: Wq halved, and the last
+    head's Wv rows zeroed."""
     import torch
     import torch.nn.functional as F
     from moca_tpu_torch.ops import flash_attention as fa
 
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
+    tol, tag = kernel_tol(dtype), _fp32_tag(dtype)
     heads = c // 64
-    x = _randn_bf16((n, s, c), gen)
+    x = _randn((n, s, c), gen, dtype)
     wq, wk, wv, wo = ((torch.randn((c, c), generator=gen, device="cuda") * c ** -0.5)
-                      .to(torch.bfloat16) for _ in range(4))
-    bo = (torch.randn((c,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+                      .to(dtype) for _ in range(4))
+    bo = (torch.randn((c,), generator=gen, device="cuda") * 0.1).to(dtype)
     out = fa.fused_qkv_attention(x, wq, wk, wv, wo, bo, heads)
     torch.cuda.synchronize()
-    ref = fa.fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads)
+    with full_fp32():
+        ref = fa.fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads)
     wv_cut = wv.clone()
     wv_cut[-64:] = 0
     faults = (fa.fused_qkv_attention(x, wq * 0.5, wk, wv, wo, bo, heads),
               fa.fused_qkv_attention(x, wq, wk, wv_cut, wo, bo, heads))
-    rel, fault_rel = hold_to_plain(f"fused_qkv_attention [{n},{s},{c}]", out, ref, faults)
+    rel, fault_rel = hold_to_plain(f"fused_qkv_attention{' fp32' * fp32} [{n},{s},{c}]", out,
+                                   ref, faults, tol=tol)
     del faults, wv_cut
     err = (out.float() - ref.float()).abs().max().item()
     ms = cuda_ms(lambda: fa.fused_qkv_attention(x, wq, wk, wv, wo, bo, heads), reps)
-    plain_ms = cuda_ms(lambda: fa.fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads), 2,
-                       warmup=1)
+    extra = {}
+    if fp32:
+        xb, wb = x.bfloat16(), [w.bfloat16() for w in (wq, wk, wv, wo, bo)]
+        extra["bf16_ms"] = cuda_ms(lambda: fa.fused_qkv_attention(xb, *wb, heads), reps)
+        del xb, wb
     # the library call for K3's function (timed only, the port never calls
     # it): torch's multi-head attention on [S, N, C] with the separate q/k/v
     # projection weights, no input bias, and Wo, bo as its out projection
@@ -479,28 +599,32 @@ def check_fused(n, s, c, gen, rows, reps=10):
         xt, xt, xt, c, heads, None, None, None, None, False, 0.0, wo, bo, training=False,
         need_weights=False, use_separate_proj_weight=True, q_proj_weight=wq,
         k_proj_weight=wk, v_proj_weight=wv)[0]
-    lib_rel = max_row_rel_err(library().transpose(0, 1), ref)
-    lib_ms = cuda_ms(library, reps)
-    # and the port's unfused route beside it: four cuBLAS linears around K2
-    unfused_ms = cuda_ms(lambda: F.linear(fa.packed_attention(
-        F.linear(x, wq), F.linear(x, wk), F.linear(x, wv), heads), wo, bo), reps)
-    bms, by = fused_qkv_bound_ms(n, s, c)
-    cl = fa.fused_qkv_head_split(n, s, c)  # the wrapper's cluster size
-    path = "head_split" if cl > 1 else "tiles"
-    print(f"[K3 fused_qkv_attention N={n} S={s} C={c} ({path}, cluster {cl})] row_rel_err "
-          f"{rel:.3e} (tol {KERNEL_TOL}, "
+    with full_fp32():
+        plain_ms = cuda_ms(lambda: fa.fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads),
+                           2, warmup=1)
+        lib_rel = max_row_rel_err(library().transpose(0, 1), ref)
+        lib_ms = cuda_ms(library, reps)
+        # and the port's unfused route beside it: four cuBLAS linears around K2
+        unfused_ms = cuda_ms(lambda: F.linear(fa.packed_attention(
+            F.linear(x, wq), F.linear(x, wk), F.linear(x, wv), heads), wo, bo), reps)
+    bms, by = fused_qkv_bound_ms(n, s, c, dtype)
+    cl = 1 if fp32 else fa.fused_qkv_head_split(n, s, c)  # the wrapper's cluster size
+    path = "fp32_ffma" if fp32 else "head_split" if cl > 1 else "tiles"
+    print(f"[K3 fused_qkv_attention{' fp32' * fp32} N={n} S={s} C={c} ({path}, cluster {cl})] "
+          f"row_rel_err {rel:.3e} (tol {tol}, "
           f"planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} kernel {ms:.4f} ms "
           f"plain {plain_ms:.4f} ms library (multi_head_attention_forward, row_rel_err "
           f"{lib_rel:.3e} against the plain version) {lib_ms:.4f} ms unfused route (4 linears "
-          f"+ K2) {unfused_ms:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
-    rows.append(dict(name=f"fused_qkv_attention N={n} S={s} C={c}", route="cuda",
-                     source="moca_tpu_torch/csrc/fused_qkv_attention.cu",
+          f"+ K2) {unfused_ms:.4f} ms bound {bms:.4f} ms ({by})"
+          + (f"; bf16 path {extra['bf16_ms']:.4f} ms" if fp32 else ""), flush=True)
+    rows.append(dict(name=f"fused_qkv_attention{' fp32' * fp32} N={n} S={s} C={c}",
+                     route="cuda", source="moca_tpu_torch/csrc/fused_qkv_attention.cu",
                      replaces="moca_tpu/ops/flash_attention.py:524 (_fused_qkv_kernel)",
-                     shape=(n, s, c), max_abs_err=err, max_row_rel_err=rel,
+                     shape=(n, s, c) + tag, max_abs_err=err, max_row_rel_err=rel,
                      fault_row_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
                      bound_ms=bms, bound_by=by, library_ms=lib_ms,
                      library_row_rel_err=lib_rel, unfused_route_ms=unfused_ms,
-                     path=path, cluster=cl))
+                     path=path, cluster=cl, **extra))
 
 
 def unet_shapes(rows: int, ctx: int, lat=(40, 64), f=16):
@@ -620,7 +744,53 @@ def phase_kernels(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int):
     # and at every shape phase 3's num_head_channels=32 U-Net gives it
     for n, s, c, heads in unet_reference_packed_shapes(32):
         check_packed(n, s, c, gen, rows, d=c // heads)
+    # phase 14's condition images: one frame a row, 2 CFG rows, 77 tokens
+    for b, sq, sk, h, _ in unet_shapes(2, 77, f=1)[0]:
+        if (b, sq, sk, h, 64) not in k1:
+            check_flash(b, sq, sk, h, gen, rows)
+    # the fp32 paths at the shapes of the fp32 runs, each timed beside its
+    # bf16 path on the same inputs
+    f32 = torch.float32
+    fk1, fk2, fk3, fk4 = fp32_shapes()
+    for b, sq, sk, h, _ in fk1:
+        check_flash(b, sq, sk, h, gen, rows, reps=3, dtype=f32)
+    for n, s, c, heads in fk2:
+        check_packed(n, s, c, gen, rows, reps=5, d=c // heads, dtype=f32)
+    for n, s, c in fk3:
+        check_fused(n, s, c, gen, rows, reps=3, dtype=f32)
+    for b, sq, sk, h, _ in fk4:
+        check_flash(b, sq, sk, h, gen, rows, reps=3, onepass=True, dtype=f32)
     return rows
+
+
+# Phase 14's acceptance golden clip, fp32 at 512x320, f=16: n and the new
+# frames cut from the CLI's 4 and 16, so that the script stays inside its
+# time limit. The cut clip (20 FIFO iterations at 8 U-Net rows, a 32-step
+# base sample) takes ~51 s on an H100 (PERF.md section 5); the CLI's (64
+# iterations at 16 rows, 64 base steps) has ~6x its FIFO work.
+ACCEPT_PARTITIONS = 2
+ACCEPT_NEW_FRAMES = 4
+
+
+def fp32_shapes():
+    """(K1 [B,Sq,Sk,H,D], K2 [N,S,C,heads], K3 [N,S,C], K4 [B,Sq,Sk,H,D])
+    shapes of the fp32 runs: phase 14's golden clip (2 * 2n FIFO rows with
+    the 154-token concept context, 2 base rows with 77); phase 3's small
+    U-Net as shipped (context 77) and with both switches (context 154:
+    K4 takes its cross-attention, K3 the temporal attention at d = 64 where
+    C is 320 or a multiple of 128); and one K3 and one K4 row at the golden
+    clip's widths, for their times."""
+    k1, k2 = main_path_shapes(4 * ACCEPT_PARTITIONS, 2, 154, 77)
+    k1 = k1 + [(16, 256, 256, 1, 64)]
+    ref_k2 = unet_reference_packed_shapes(64)
+    # dict.fromkeys: the FIFO batch's middle block and the base sample's
+    # ds-4 level give K2 one shape at these rows; each shape is one row
+    k2 = list(dict.fromkeys([(n, s, c, c // 64) for n, s, c in k2] + ref_k2))
+    k3 = [(n, s, c) for n, s, c, heads in ref_k2
+          if c // heads == 64 and (c == 320 or c % 128 == 0)]
+    k3.append((4 * ACCEPT_PARTITIONS * 2560, 16, 320))
+    k4 = [(16, 256, 154, 1, 64), (4 * ACCEPT_PARTITIONS * 16, 2560, 2560, 5, 64)]
+    return k1, k2, k3, k4
 
 
 def rel_max(out, ref) -> float:
@@ -649,44 +819,62 @@ def reference_unet(ctx_len, **cfg_kw):
     return ref_model, x, ts, ctx
 
 
-def check_unet_reference(label, ctx_len, switched, expect, **cfg_kw):
-    """The port's U-Net with the kernels (bf16, GPU) against its plain path
-    (fp32, CPU) on one small input (S=256 spatial, S=16 temporal); fails
-    unless every kernel named in `expect` launched. Returns the GPU
-    forward's launches, {kernel: {shape: n}}."""
+def check_unet_reference(label, ctx_len, switched, expect, dtype=None, **cfg_kw):
+    """The port's U-Net with the kernels (`dtype` on the GPU, bf16 by
+    default) against its plain path (fp32, CPU) on one small input (S=256
+    spatial, S=16 temporal); fails unless every kernel named in `expect`
+    launched (its fp32 path, in fp32). Returns the GPU forward's launches,
+    {kernel: {shape: n}}."""
     import torch
     from moca_tpu_torch.ops import flash_attention as fa
 
+    dtype = dtype or torch.bfloat16
+    fp32 = dtype == torch.float32
+    tol = FP32_UNET_REL_TOL if fp32 else UNET_REL_TOL
     ref_model, x, ts, ctx = reference_unet(ctx_len, **cfg_kw)
     with torch.inference_mode():
         ref = ref_model(x, ts, ctx, fps=10)
-        gpu_model = ref_model.to("cuda", torch.bfloat16)
+        gpu_model = ref_model.to("cuda", dtype)
         fa.reset_launch_counts()
         with switches_on() if switched else contextlib.nullcontext():
             out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
-    if not math.isfinite(rel) or rel > UNET_REL_TOL:
-        fail(f"U-Net {label} GPU vs CPU reference: relative max err {rel} > {UNET_REL_TOL}")
+    if not math.isfinite(rel) or rel > tol:
+        fail(f"U-Net {label} GPU vs CPU reference: relative max err {rel} > {tol}")
     launched = {fn.__name__: dict(fn.launches) for fn in fa.KERNELS}
-    missing = [name for name in expect if not launched[name]]
+    missing = [name for name in expect
+               if not (fp32_launches(launched[name]) if fp32 else launched[name])]
     if missing:
         fail(f"the reference-check U-Net ({label}) did not reach {missing}")
-    print(f"[unet reference, {label}] bf16 GPU (kernels) vs fp32 CPU (plain): relative max "
-          f"err {rel:.3e} (tol {UNET_REL_TOL}); launches "
+    print(f"[unet reference, {label}] {'fp32' if fp32 else 'bf16'} GPU (kernels) vs fp32 CPU "
+          f"(plain): relative max err {rel:.3e} (tol {tol}; TF32 matmuls "
+          f"{torch.backends.cuda.matmul.allow_tf32}, convolutions "
+          f"{torch.backends.cudnn.allow_tf32}); launches "
           f"{json.dumps({k: {str(s): n for s, n in v.items()} for k, v in launched.items() if v})}",
           flush=True)
     return launched
 
 
 def phase_unet_reference():
-    """The three U-Net checks; returns the launches of the one at
-    num_head_channels=32, the path's run at a head width other than 64."""
+    """The U-Net checks; returns {run: launches} of the runs whose shapes
+    phase 2 holds: num_head_channels=32 (K2 at a head width other than 64)
+    and the fp32 forwards (every kernel's fp32 path)."""
+    import torch
+
     check_unet_reference("as shipped, context 77", 77, False,
                          ("flash_attention", "packed_attention"))
     check_unet_reference("both switches, context 154", 154, True,
                          ("flash_attention", "fused_qkv_attention", "flash_attention_onepass"))
-    return check_unet_reference("num_head_channels=32", 77, False, ("packed_attention",),
-                                num_head_channels=32)
+    runs = {"unet_d32": check_unet_reference("num_head_channels=32", 77, False,
+                                             ("packed_attention",), num_head_channels=32)}
+    runs["unet_fp32"] = check_unet_reference(
+        "fp32, as shipped, context 77", 77, False, ("flash_attention", "packed_attention"),
+        dtype=torch.float32)
+    runs["unet_fp32_switched"] = check_unet_reference(
+        "fp32, both switches, context 154", 154, True,
+        ("flash_attention", "fused_qkv_attention", "flash_attention_onepass"),
+        dtype=torch.float32)
+    return runs
 
 
 def full_width_model():
@@ -1895,6 +2083,230 @@ def phase_mesh(main_frames, main_launches, new_video_length: int, num_partitions
     return shapes
 
 
+# --- phase 14: the user scripts ----------------------------------------------
+
+SHIPPED_YAML = "configs/inference_t2v_512_v2.0.yaml"
+SCRIPTS_DIR = "build/smoke_scripts"
+# a BPE merge table of four merges: the acceptance's tokenizer stage loads
+# it (no known-answer ids: it is not the 49408-entry CLIP table)
+TINY_BPE = "version\nc a\nca t</w>\nd o\ndo g</w>\n"
+TOWER_PREFIXES = (("unet", "model.diffusion_model."), ("vae", "first_stage_model."),
+                  ("clip", "cond_stage_model.model."))
+
+
+def write_upstream_checkpoint(path, seed):
+    """The shipped widths (SHIPPED_YAML) with random fp32 weights N(0, 0.02^2)
+    from a CUDA generator seeded `seed`, saved as the upstream model.ckpt
+    is laid out: {"state_dict": ...} with each tower under its prefix.
+    Returns the file's bytes."""
+    import torch
+    from moca_tpu_torch.config import load_model_config
+    from moca_tpu_torch.models.latent_diffusion import init_random_model
+
+    cfg = load_model_config(SHIPPED_YAML)
+    model = init_random_model(cfg.unet, cfg.vae, cfg.clip,
+                              torch.Generator(device="cuda").manual_seed(seed), device="cuda",
+                              dtype=torch.float32)
+    sd = {prefix + k: v.cpu() for tower, prefix in TOWER_PREFIXES
+          for k, v in getattr(model, tower).state_dict().items()}
+    del model
+    torch.save({"state_dict": sd}, path)
+    return os.path.getsize(path)
+
+
+def run_acceptance(ckpt, bpe):
+    """moca_tpu_torch.cli.acceptance.main on the checkpoint, fp32 by default,
+    at 512x320, f=16, n=ACCEPT_PARTITIONS, ACCEPT_NEW_FRAMES new frames,
+    --skip_oracles, with the run's own golden_frames.npz as the reference:
+    exit 0 with convert, tokenizer, golden and ssim ok, and the fp32 paths
+    of K1 and K2 launched. Then the planted fault: the golden frames rolled
+    by W/4 along the width, through `stage_ssim` on the same golden array,
+    must fail the gate. Returns the run's launches."""
+    import numpy as np
+    import torch
+    from moca_tpu_torch.cli import acceptance
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    out, art = os.path.join(SCRIPTS_DIR, "verdict.json"), os.path.join(SCRIPTS_DIR, "accept")
+    golden_npz = os.path.join(art, "golden_frames.npz")
+    argv = ["--ckpt", ckpt, "--bpe", bpe, "--config", SHIPPED_YAML, "--out", out,
+            "--artifacts", art, "--num_partitions", str(ACCEPT_PARTITIONS),
+            "--new_video_length", str(ACCEPT_NEW_FRAMES), "--skip_oracles",
+            "--reference_frames", golden_npz]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    code = acceptance.main(argv)
+    total = time.perf_counter() - t0
+    launched = _launches("acceptance", ("flash_attention", "packed_attention"))
+    with open(out) as f:
+        report = json.load(f)
+    st = report["stages"]
+    bad = [k for k in ("convert", "tokenizer", "golden", "ssim") if st[k]["ok"] is not True]
+    if code != 0 or bad or st["oracles"].get("skipped") != "--skip_oracles":
+        fail(f"phase 14 (a): acceptance exit {code}, stages not ok {bad}: {json.dumps(report)}")
+    k1, k2 = (fp32_launches(launched[n]) for n in ("flash_attention", "packed_attention"))
+    if not (k1 and k2):
+        fail(f"phase 14 (a): the fp32 golden clip launched K1's fp32 path {k1} and K2's {k2} "
+             f"times")
+    print(f"[acceptance] exit 0 in {total:.1f} s: convert {st['convert']['ckpt_keys']} keys, "
+          f"towers {st['convert']['unet_params']} / {st['convert']['vae_params']} / "
+          f"{st['convert']['clip_params']} params; tokenizer vocab {st['tokenizer']['vocab_size']}; "
+          f"golden {st['golden']['frames']} frames in {st['golden']['seconds']} s "
+          f"(fp32, n={ACCEPT_PARTITIONS}, {ACCEPT_NEW_FRAMES} new frames); ssim min "
+          f"{st['ssim']['ssim_per_frame_min']} (gate {st['ssim']['threshold']}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; fp32 launches K1 {k1}, K2 {k2}",
+          flush=True)
+
+    golden = np.load(golden_npz)["frames"]
+    args = acceptance.build_parser().parse_args(argv)
+    args.reference_frames = os.path.join(SCRIPTS_DIR, "fault.npz")
+    read = None
+    for kind, ref in (
+            ("the golden frames rolled by W/4 along the width",
+             lambda: np.roll(golden, golden.shape[2] // 4, axis=2)),
+            ("seeded noise N(0, 0.5^2) added to the golden frames",
+             lambda: np.clip(golden + np.random.default_rng(SEED).normal(
+                 0.0, 0.5, golden.shape).astype(np.float32), -1.0, 1.0))):
+        if read is not None:
+            print(f"[acceptance] the previous fault read SSIM {read['ssim_per_frame_min']} >= "
+                  f"{read['threshold']}: random weights make the frames too flat; planting "
+                  f"{kind} instead", flush=True)
+        np.savez(args.reference_frames, frames=ref())
+        fault = {"stages": {}}
+        acceptance.stage_ssim(args, fault, golden)
+        read = fault["stages"]["ssim"]
+        if read["ok"] is False:
+            print(f"[acceptance] planted fault ({kind}): SSIM min {read['ssim_per_frame_min']} "
+                  f"< {read['threshold']}, the gate fails it", flush=True)
+            return launched
+    fail(f"phase 14 (a): no planted fault fails the SSIM gate: {read}")
+
+
+PNG_RGBA = 6  # the IHDR colour type of 8-bit RGBA
+
+
+def png_header(path):
+    """(width, height, colour type) from a PNG's IHDR chunk."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        fail(f"{path} is not a PNG")
+    return struct.unpack(">II", head[16:24]) + (head[25],)
+
+
+def run_condition_images(ckpt, bpe):
+    """moca_tpu_torch.cli.generate_condition_images.main at its defaults
+    (512x320, 50 DDIM steps, bf16, the checkpoint loaded by cli.main's
+    loader) on a CSV of two rows whose images are missing: two RGBA PNGs of
+    512x320 that differ and are not flat. Returns the run's launches."""
+    import numpy as np
+    from moca_tpu_torch.cli import generate_condition_images
+    from moca_tpu_torch.io.video import load_image_batch
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    csv, assets = os.path.join(SCRIPTS_DIR, "prompts.csv"), os.path.join(SCRIPTS_DIR, "assets")
+    with open(csv, "w") as f:
+        f.write("prompt,conditioned_object,conditioned_image_path,conditioned_prompt,gamma\n"
+                f"a red fox,cat,{assets}/cat.png,a cat,0.4\n"
+                f"a blue bird,dog,{assets}/dog.png,a dog,0.6\n")
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    written = generate_condition_images.main(
+        ["--ckpt_path", ckpt, "--config", SHIPPED_YAML, "--prompts_file", csv,
+         "--assets_dir", assets, "--bpe_path", bpe])
+    total = time.perf_counter() - t0
+    launched = _launches("condition images", ("flash_attention",))
+    headers = [png_header(p) for p in written]
+    arrs = load_image_batch(written, (320, 512)) if len(written) == 2 else None
+    if (headers != [(512, 320, PNG_RGBA)] * 2 or np.array_equal(arrs[0], arrs[1])
+            or any(a[..., :3].std() == 0 for a in arrs)):
+        fail(f"phase 14 (b): want two RGBA 512x320 images that differ and are not flat, got "
+             f"(width, height, PNG colour type) {headers}")
+    print(f"[condition images] 2 RGBA 512x320 PNGs (bf16, 50 steps) in {total:.1f} s with the "
+          f"checkpoint's load, {total / 2:.2f} s an image; mean |difference| "
+          f"{127.5 * np.abs(arrs[0] - arrs[1]).mean():.2f} levels", flush=True)
+    return launched
+
+
+def run_video_scripts():
+    """moca_tpu_torch.cli.v2i and cli.convert_gifs on phase 6's 72 frames,
+    written as an mp4 and a gif: v2i's PNGs equal io/video.py's reading of
+    the mp4 frame for frame (every frame, and every 2nd with --frame_rate
+    2); convert_gifs' mp4 equals io/video.py's save_video of the gif's
+    frames, read back."""
+    import numpy as np
+    from moca_tpu_torch.cli import convert_gifs, v2i
+    from moca_tpu_torch.cli.acceptance import load_reference_frames
+    from moca_tpu_torch.io.video import (load_gif_frames, load_video_frames, save_video,
+                                         tensor_to_uint8, uint8_to_tensor)
+
+    frames = list(davis_inputs()[0])
+    mp4 = os.path.join(SCRIPTS_DIR, "clip.mp4")
+    gif = os.path.join(SCRIPTS_DIR, "gifs", "clip.gif")
+    save_video(frames, mp4, fps=10)
+    save_video(frames, gif, fps=10)
+    ref = load_video_frames(mp4)
+    for stride in (1, 2):
+        t0 = time.perf_counter()
+        paths = v2i.main(["--video_path", mp4, "--output_dir",
+                          os.path.join(SCRIPTS_DIR, f"frames_{stride}"),
+                          "--frame_rate", str(stride), "--image_format", "png"])
+        ms = (time.perf_counter() - t0) * 1e3
+        want = uint8_to_tensor(tensor_to_uint8(ref[::stride]))
+        got = load_reference_frames(os.path.dirname(paths[0])) if paths else None
+        if len(paths) != len(want) or not np.array_equal(got, want):
+            fail(f"phase 14 (c): v2i --frame_rate {stride} wrote {len(paths)} frames, want "
+                 f"{len(want)} equal to io/video.py's")
+        print(f"[v2i] --frame_rate {stride}: {len(paths)} PNGs equal to io/video.py's frames, "
+              f"{ms:.1f} ms host", flush=True)
+    t0 = time.perf_counter()
+    outs = convert_gifs.main([os.path.dirname(gif)])
+    ms = (time.perf_counter() - t0) * 1e3
+    direct = os.path.join(SCRIPTS_DIR, "gif_direct.mp4")
+    save_video(load_gif_frames(gif), direct, fps=10)
+    if len(outs) != 1:
+        fail(f"phase 14 (c): convert_gifs wrote {outs}, want one mp4")
+    got, want = load_video_frames(outs[0]), load_video_frames(direct)
+    if got.shape != (72, 320, 512, 3) or not np.array_equal(got, want):
+        fail(f"phase 14 (c): convert_gifs' mp4 {got.shape} is not io/video.py's mp4 of the gif")
+    print(f"[convert_gifs] 1 gif -> {outs[0]}, 72 frames equal to io/video.py's mp4 of the "
+          f"gif's frames, {ms:.1f} ms host", flush=True)
+
+
+def phase_user_scripts():
+    """(a) the acceptance certification and (b) the condition images on a
+    synthetic full-size checkpoint written under build/ and deleted after
+    them; (c) v2i and convert_gifs; (d) the verification drive on the card.
+    Returns {run: launches}."""
+    import gzip
+    import shutil
+    from moca_tpu_torch.cli import verify_drive
+
+    shutil.rmtree(SCRIPTS_DIR, ignore_errors=True)
+    os.makedirs(SCRIPTS_DIR)
+    ckpt, bpe = os.path.join(SCRIPTS_DIR, "model.ckpt"), os.path.join(SCRIPTS_DIR, "bpe.txt.gz")
+    with gzip.open(bpe, "wt", encoding="utf-8") as f:
+        f.write(TINY_BPE)
+    t0 = time.perf_counter()
+    nbytes = write_upstream_checkpoint(ckpt, seed=3)
+    print(f"[scripts] synthetic upstream checkpoint, {nbytes / 1e9:.2f} GB fp32, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    try:
+        launched = {"acceptance": run_acceptance(ckpt, bpe),
+                    "condition_images": run_condition_images(ckpt, bpe)}
+    finally:
+        os.remove(ckpt)
+    run_video_scripts()
+    t0 = time.perf_counter()
+    drive = verify_drive.main(["--out_dir", os.path.join(SCRIPTS_DIR, "verify")])
+    print(f"[verify drive] on the card: {len(drive['frames'])} frames, mp4 and gif written, "
+          f"cached rerun identical, {time.perf_counter() - t0:.1f} s", flush=True)
+    return launched
+
+
 _CATEGORIES = (  # kernel-name substrings -> category, first match wins
     ("flash_fwd", "K1 flash_attention"), ("packed_fwd", "K2 packed_attention"),
     ("fused_qkv_fwd", "K3 fused_qkv_attention"), ("onepass_fwd", "K4 flash_attention_onepass"),
@@ -2004,10 +2416,10 @@ def main(argv):
     # text context: 77 prompt tokens, 154 with the conditioned prompt (FIFO)
     rows = timed("phase 2, kernels against their plain versions", phase_kernels, rows_fifo, 2,
                  154, 77)
-    unet_d32 = timed("phase 3, U-Net against its plain path", phase_unet_reference)
+    unet_runs = timed("phase 3, U-Net against its plain path", phase_unet_reference)
     shapes, model, main_frames = timed("phase 4, main path", phase_main_path, new_video_length,
                                        num_partitions)
-    shapes["unet_d32"] = unet_d32
+    shapes.update(unet_runs)
     timed("phase 5, profile", phase_profile, model, rows_fifo, 154)
     shapes["davis"] = timed("phase 6, DAVIS", phase_davis, model, new_video_length,
                             num_partitions)
@@ -2021,6 +2433,7 @@ def main(argv):
     shapes.update(timed("phase 12, evaluation sweep", phase_eval_sweep, model))
     shapes.update(timed("phase 13, mesh", phase_mesh, main_frames, shapes["default"],
                         new_video_length, num_partitions))
+    shapes.update(timed("phase 14, user scripts", phase_user_scripts))
 
     for run, by_kernel in shapes.items():
         for name, by_shape in by_kernel.items():
@@ -2034,6 +2447,19 @@ def main(argv):
         for run in shapes:
             r[f"launches_{run}"] = shapes[run][kernel].get(shape, 0)
         r["launches"] = sum(r[f"launches_{run}"] for run in shapes)
+    # each Pallas kernel's rows (its fp32 path apart), weighted by their
+    # launches over the runs: the totals PERF.md's kernel table carries
+    summary = {}
+    for r in rows:
+        key = r["replaces"].split("(")[-1].rstrip(")") + (" fp32" if " fp32 " in r["name"] else "")
+        total = summary.setdefault(key, dict.fromkeys(
+            ("launches", "ms", "bound_ms", "plain_ms", "library_ms"), 0.0))
+        total["launches"] += r["launches"]
+        for field in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            total[field] += r["launches"] * r[field]
+    print(f"[kernel summary, launch-weighted] "
+          f"{json.dumps({k: {f: round(v, 1) for f, v in t.items()} for k, t in summary.items()})}",
+          flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,10 @@
 // K1: fused attention of q [B, Sq, H, D] over k, v [B, Sk, H, D], bf16,
 // D in {64, 128}.
 //
+// The fp32 path (`moca_flash_attention_f32`, csrc/attention_f32.cuh) takes
+// fp32 q, k, v and returns fp32: the online softmax on scalar FFMAs, one
+// design at every shape.
+//
 // Replaces the Pallas TPU kernels `_fa_kernel` (moca_tpu/ops/flash_attention.py:93,
 // launched at :765 by `flash_attention`) and `_fa_small_kernel` (:223, launched at
 // :298 by `_small_attention`). On the product path it serves the U-Net's spatial
@@ -34,6 +38,7 @@
 // the guarded flag-and-rerun are not carried over. Neither is the TPU block
 // policy (`_choose_flash_blocks`, the VMEM caps): tiles here are sized for
 // Hopper's shared memory and registers.
+#include "attention_f32.cuh"
 #include "flash_hopper.cuh"
 #include "mma.cuh"
 
@@ -316,6 +321,15 @@ extern "C" int moca_flash_attention(const void* q, const void* k, const void* v,
   if (path > 2) return static_cast<int>(cudaErrorInvalidValue);
   return D == 128 ? launch_wgmma<128>(path, q, k, v, o, B, Sq, Sk, H, scale_log2, s)
                   : launch_wgmma<64>(path, q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+}
+
+// The fp32 path: fp32 q, k, v and o, one design (path must be -1).
+extern "C" int moca_flash_attention_f32(const void* q, const void* k, const void* v, void* o,
+                                        int B, int Sq, int Sk, int H, int D, float scale_log2,
+                                        int path, void* stream) {
+  if (path >= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return f32::attention<false>(q, k, v, o, B, Sq, Sk, H, D, scale_log2,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* moca_cuda_error_string(int err) {

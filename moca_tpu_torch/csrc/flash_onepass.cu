@@ -2,6 +2,10 @@
 // D in {64, 128}: the row max is known before any exponent is taken, and
 // nothing is rescaled.
 //
+// The fp32 path (`moca_flash_onepass_f32`, csrc/attention_f32.cuh) takes
+// fp32 q, k, v and returns fp32: the same two sweeps on scalar FFMAs, one
+// design at every shape.
+//
 // Replaces the Pallas TPU kernel `_fa_onepass_kernel`
 // (moca_tpu/ops/flash_attention.py:184, launched at :713 by `flash_attention`
 // when MOCA_TPU_FA_ONEPASS=1 and the TPU block policy gives one kv block). On
@@ -43,6 +47,7 @@
 //     m16n8k16, P fed from the QK^T accumulators as the A fragments of PV, V
 //     read with ldmatrix.trans, ragged tails zero-filled and masked with -inf.
 //     The q scale is applied to the q fragments in registers.
+#include "attention_f32.cuh"
 #include "flash_hopper.cuh"
 #include "mma.cuh"
 
@@ -339,6 +344,15 @@ extern "C" int moca_flash_onepass(const void* q, const void* k, const void* v, v
   if (path > 2) return static_cast<int>(cudaErrorInvalidValue);
   return D == 128 ? launch_wgmma<128>(path, q, k, v, o, B, Sq, Sk, H, scale_log2, s)
                   : launch_wgmma<64>(path, q, k, v, o, B, Sq, Sk, H, scale_log2, s);
+}
+
+// The fp32 path: fp32 q, k, v and o, one design (path must be -1).
+extern "C" int moca_flash_onepass_f32(const void* q, const void* k, const void* v, void* o, int B,
+                                      int Sq, int Sk, int H, int D, float scale_log2, int path,
+                                      void* stream) {
+  if (path >= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return f32::attention<true>(q, k, v, o, B, Sq, Sk, H, D, scale_log2,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* moca_cuda_error_string(int err) {

@@ -67,6 +67,21 @@
 // heads and computing its share of the out projection's blocks, the attention
 // tile exchanged through the scratch (each CTA signals every CTA of the
 // cluster once its heads are written).
+//
+// The fp32 path (`moca_fused_qkv_attention_f32`, `f32::fused_qkv_fwd` below)
+// takes fp32 x, weights and bias and returns fp32, as the Pallas body does
+// on fp32 refs (every rounding point above is then exact). Simple first: a
+// CTA of 256 threads owns one tile of T tokens and, head by head, projects
+// q, k and v of the head ([64, 64] each) with scalar FFMAs, 4 x 4 outputs a
+// thread from [16, 64] chunks of x and of the three weights' rows staged
+// transposed in shared memory; runs the S x S attention of each sequence
+// from shared memory (four threads a row, 16 dimensions each, the logits
+// summed by shuffles, the softmax exact in fp32); and writes the head's
+// output into an fp32 scratch [N*S, C] in device memory. Once every head is
+// done, the out projection reads the tile's rows back from the scratch in
+// the same chunks, 64 output columns at a time, and adds bo. No head split:
+// the wrapper passes 1. Plain TF32 products (a 2^-11 unit) would miss the
+// fp32 limit, so none are used.
 #include "hopper.cuh"
 #include "mma.cuh"
 
@@ -588,7 +603,199 @@ int launch(const Plan& p, const Maps& maps, const void* bo, void* o, void* scrat
                         hsplit, scale_log2);
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 path
+// ---------------------------------------------------------------------------
+
+namespace f32 {
+
+constexpr int THREADS = 256;
+constexpr int KC = 16;  // depth of a staged GEMM chunk
+
+struct Smem {
+  float a[KC][TILE];         // the A operand's chunk (x or the heads' outputs), transposed
+  float b[3][KC][TILE];      // up to three weights' 64-row blocks, transposed
+  float qkv[3][TILE][D + 1];  // q, k, v of one head (padded rows)
+};
+
+// Columns [k0, k0 + KC) of rows [0, 64) of `a` (token rows, `arows` of them
+// valid, zero past them) and of `nb` weight blocks (64 rows each) into the
+// staging chunks, transposed; one float4 a thread and operand.
+__device__ __forceinline__ void stage_chunk(Smem& sm, const float* a, int arows,
+                                            const float* const* b, int nb, long long C, int k0,
+                                            int tid) {
+  const int r = tid / 4, cc = (tid % 4) * 4;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 av = r < arows ? *reinterpret_cast<const float4*>(a + r * C + k0 + cc) : zero;
+  float4 bv[3];
+  for (int m = 0; m < nb; ++m) bv[m] = *reinterpret_cast<const float4*>(b[m] + r * C + k0 + cc);
+  __syncthreads();  // the previous chunk is consumed
+  sm.a[cc][r] = av.x;
+  sm.a[cc + 1][r] = av.y;
+  sm.a[cc + 2][r] = av.z;
+  sm.a[cc + 3][r] = av.w;
+  for (int m = 0; m < nb; ++m) {
+    sm.b[m][cc][r] = bv[m].x;
+    sm.b[m][cc + 1][r] = bv[m].y;
+    sm.b[m][cc + 2][r] = bv[m].z;
+    sm.b[m][cc + 3][r] = bv[m].w;
+  }
+  __syncthreads();
+}
+
+// acc[m] += the chunk's A rows 4ty.. times weight block m's rows 4tx.. .
+template <int NB>
+__device__ __forceinline__ void chunk_product(const Smem& sm, float (&acc)[NB][4][4], int ty,
+                                              int tx) {
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    const float4 a = *reinterpret_cast<const float4*>(&sm.a[kk][4 * ty]);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int m = 0; m < NB; ++m) {
+      const float4 b = *reinterpret_cast<const float4*>(&sm.b[m][kk][4 * tx]);
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][i][j] = fmaf(av[i], bv[j], acc[m][i][j]);
+    }
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(THREADS)
+    fused_qkv_fwd(const float* __restrict__ x, const float* __restrict__ wq,
+                  const float* __restrict__ wk, const float* __restrict__ wv,
+                  const float* __restrict__ wo, const float* __restrict__ bo,
+                  float* __restrict__ o, float* scratch, long long ntok, int C,
+                  float scale_log2) {
+  constexpr int T = (TILE / S) * S;  // tokens a tile: whole sequences
+  extern __shared__ __align__(16) unsigned char smem_raw_f32[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw_f32);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const long long tok0 = static_cast<long long>(blockIdx.x) * T;
+  const int rows = static_cast<int>(min(static_cast<long long>(T), ntok - tok0));
+  const long long CC = C;
+  const float* xt = x + tok0 * CC;
+  float* st = scratch + tok0 * CC;
+
+  // the attention's threads: four a token row, 16 dimensions each; rows past
+  // T (S = 24) compute on row 0 and store nothing
+  const int ar = tid / 4, part = tid % 4;
+  const int row = ar < T ? ar : 0, seq0 = (row / S) * S;
+
+  for (int h = 0; h < C / D; ++h) {
+    float acc[3][4][4] = {};
+    const float* w[3] = {wq + h * D * CC, wk + h * D * CC, wv + h * D * CC};
+    for (int k0 = 0; k0 < C; k0 += KC) {
+      stage_chunk(sm, xt, rows, w, 3, CC, k0, tid);
+      chunk_product<3>(sm, acc, ty, tx);
+    }
+#pragma unroll
+    for (int m = 0; m < 3; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sm.qkv[m][4 * ty + i][4 * tx + j] = acc[m][i][j];
+    __syncthreads();
+
+    float s[S];
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      float dot = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        dot = fmaf(sm.qkv[0][row][16 * part + i], sm.qkv[1][seq0 + j][16 * part + i], dot);
+      s[j] = dot;
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
+      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 2);
+      s[j] *= scale_log2;
+      mx = fmaxf(mx, s[j]);
+    }
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      s[j] = exp2f(s[j] - mx);
+      sum += s[j];
+    }
+    const float inv = 1.f / sum;
+    if (ar < rows) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        float out = 0.f;
+#pragma unroll
+        for (int j = 0; j < S; ++j) out = fmaf(s[j] * inv, sm.qkv[2][seq0 + j][16 * part + i], out);
+        st[ar * CC + h * D + 16 * part + i] = out;
+      }
+    }
+    __syncthreads();  // q, k, v consumed before the next head's overwrite them
+  }
+
+  // the out projection over the heads' outputs, read back from the scratch
+  for (int cb = 0; cb < C / D; ++cb) {
+    float acc[1][4][4] = {};
+    const float* w[1] = {wo + cb * D * CC};
+    for (int k0 = 0; k0 < C; k0 += KC) {
+      stage_chunk(sm, st, rows, w, 1, CC, k0, tid);
+      chunk_product<1>(sm, acc, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i;
+      if (r >= rows) continue;
+      const int col = cb * D + 4 * tx;
+      *reinterpret_cast<float4*>(o + (tok0 + r) * CC + col) =
+          make_float4(acc[0][i][0] + bo[col], acc[0][i][1] + bo[col + 1],
+                      acc[0][i][2] + bo[col + 2], acc[0][i][3] + bo[col + 3]);
+    }
+  }
+}
+
+template <int S>
+int launch(const void* x, const void* wq, const void* wk, const void* wv, const void* wo,
+           const void* bo, void* o, void* scratch, long long ntok, int C, float scale_log2,
+           cudaStream_t stream) {
+  constexpr int T = (TILE / S) * S;
+  constexpr int bytes = static_cast<int>(sizeof(Smem));
+  cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd<S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long grid = (ntok + T - 1) / T;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  fused_qkv_fwd<S><<<static_cast<unsigned>(grid), THREADS, bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wq), static_cast<const float*>(wk),
+      static_cast<const float*>(wv), static_cast<const float*>(wo), static_cast<const float*>(bo),
+      static_cast<float*>(o), static_cast<float*>(scratch), ntok, C, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
 }  // namespace
+
+// The fp32 path: fp32 x, weights, bias, o and scratch; no head split
+// (hsplit must be 1).
+extern "C" int moca_fused_qkv_attention_f32(const void* x, const void* wq, const void* wk,
+                                            const void* wv, const void* wo, const void* bo,
+                                            void* o, void* scratch, long long N, int S, int C,
+                                            int hsplit, float scale_log2, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long ntok = N * S;
+  if (!scratch || C <= 0 || C % D != 0 || C > 1280 || ntok <= 0 || hsplit != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (S) {
+    case 8: return f32::launch<8>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, scale_log2, st);
+    case 16: return f32::launch<16>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, scale_log2, st);
+    case 24: return f32::launch<24>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, scale_log2, st);
+    case 32: return f32::launch<32>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, scale_log2, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // hsplit: CTAs of a cluster that split one tile's heads (1, 2, 4 or 8; the
 // wrapper's `fused_qkv_head_split`).

@@ -30,6 +30,17 @@
 // through shared memory and written as whole rows. The lane-slice and
 // lane-mask tricks of the TPU kernels work around Mosaic's lane layout and
 // have no counterpart here.
+//
+// The fp32 path (`moca_packed_attention_f32`, `packed_fwd_f32` below) takes
+// fp32 q, k, v and returns fp32, as the Pallas bodies do on fp32 refs: fp32
+// logits, the exact softmax normalised before PV, fp32 accumulation. It is
+// bound by bytes as the bf16 path is, with twice the bytes. One warp owns one
+// (row, head) problem and copies the head's S rows of k and v into shared
+// memory (16-byte cp.async); L = 32 / S lanes share a q row where S divides
+// 32 (one lane a row at S = 24, 8 lanes idle), each owning every L-th float4
+// chunk of the row: its partial logits over its chunks are summed by
+// shuffles, then it writes its chunks of the output. Every product is a
+// scalar FFMA: plain TF32 (a 2^-11 unit) would miss the fp32 limit.
 #include "mma.cuh"
 
 using namespace moca;
@@ -203,7 +214,122 @@ int launch_d(const void* q, const void* k, const void* v, void* o, long long N, 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The fp32 path
+// ---------------------------------------------------------------------------
+
+constexpr int F32_WARPS = 4;
+
+template <int S>
+__global__ void __launch_bounds__(F32_WARPS * 32)
+    packed_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, long long items, int H,
+                   int d, float scale_log2) {
+  constexpr int L = 32 % S == 0 ? 32 / S : 1;  // lanes a q row
+  extern __shared__ __align__(16) float smem_f32[];  // per warp: k, v [S][d]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long item = static_cast<long long>(blockIdx.x) * F32_WARPS + warp;
+  if (item >= items) return;  // the whole warp leaves together; no block barrier follows
+  const long long n = item / H;
+  const int h = static_cast<int>(item % H);
+  const long long C = static_cast<long long>(H) * d;
+  const long long base = n * S * C + static_cast<long long>(h) * d;
+  const int nch = d >> 2;  // float4 chunks of a head's row
+
+  float* sk = smem_f32 + static_cast<long long>(warp) * 2 * S * d;
+  float* sv = sk + S * d;
+  for (int c = lane; c < 2 * S * nch; c += 32) {
+    const int which = c / (S * nch), rem = c % (S * nch);
+    const int r = rem / nch, col = (rem % nch) * 4;
+    cp_async16((which == 0 ? sk : sv) + r * d + col, (which == 0 ? k : v) + base + r * C + col);
+  }
+  cp_async_commit();
+
+  const int row = min(lane / L, S - 1), part = lane % L;  // lanes past S * L repeat row S - 1
+  const float* qrow = q + base + row * C;
+  cp_async_wait<0>();
+  __syncwarp();
+
+  float s[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) s[j] = 0.f;
+  for (int c = part; c < nch; c += L) {
+    const float4 x = *reinterpret_cast<const float4*>(qrow + 4 * c);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const float4 kk = *reinterpret_cast<const float4*>(sk + j * d + 4 * c);
+      s[j] = fmaf(x.x, kk.x, s[j]);
+      s[j] = fmaf(x.y, kk.y, s[j]);
+      s[j] = fmaf(x.z, kk.z, s[j]);
+      s[j] = fmaf(x.w, kk.w, s[j]);
+    }
+  }
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+#pragma unroll
+    for (int off = 1; off < L; off <<= 1) s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+    s[j] *= scale_log2;
+    mx = fmaxf(mx, s[j]);
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    s[j] = exp2f(s[j] - mx);
+    sum += s[j];
+  }
+  const float inv = 1.f / sum;
+#pragma unroll
+  for (int j = 0; j < S; ++j) s[j] *= inv;
+
+  if (lane >= S * L) return;  // no shuffle follows
+  float* orow = o + base + row * C;
+  for (int c = part; c < nch; c += L) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const float4 vv = *reinterpret_cast<const float4*>(sv + j * d + 4 * c);
+      acc.x = fmaf(s[j], vv.x, acc.x);
+      acc.y = fmaf(s[j], vv.y, acc.y);
+      acc.z = fmaf(s[j], vv.z, acc.z);
+      acc.w = fmaf(s[j], vv.w, acc.w);
+    }
+    *reinterpret_cast<float4*>(orow + 4 * c) = acc;
+  }
+}
+
+template <int S>
+int launch_f32(const void* q, const void* k, const void* v, void* o, long long N, int H, int d,
+               float scale_log2, cudaStream_t stream) {
+  const int bytes = F32_WARPS * 2 * S * d * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(packed_fwd_f32<S>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = N * H;
+  const long long blocks = (items + F32_WARPS - 1) / F32_WARPS;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  packed_fwd_f32<S><<<static_cast<unsigned>(blocks), F32_WARPS * 32, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), items, H, d, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int moca_packed_attention_f32(const void* q, const void* k, const void* v, void* o,
+                                         long long N, int S, int H, int d, float scale_log2,
+                                         void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 0 || d > 128 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (S) {
+    case 8: return launch_f32<8>(q, k, v, o, N, H, d, scale_log2, st);
+    case 16: return launch_f32<16>(q, k, v, o, N, H, d, scale_log2, st);
+    case 24: return launch_f32<24>(q, k, v, o, N, H, d, scale_log2, st);
+    case 32: return launch_f32<32>(q, k, v, o, N, H, d, scale_log2, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 extern "C" int moca_packed_attention(const void* q, const void* k, const void* v, void* o,
                                      long long N, int S, int H, int d, float scale_log2,

@@ -8,9 +8,11 @@ and mp4 frame loading (funcs.py:538-574). uint8 -> float goes through the host
 library of native/ (io/fastio.py, built at first use) where it is
 available, else numpy. Unlike the reference, float -> uint8 and the clip
 packing stay on numpy: on the H100's host the library was no faster there
-(chip_smoke.py phase 6 times all three; PERF.md). PIL, cv2
-and imageio are imported inside the functions that use them, so the package
-imports without them.
+(chip_smoke.py phase 6 times all three; PERF.md). Gifs are written and read
+with PIL (the JAX package writes them with imageio, whose pillow plugin
+gives the same pixels; the GPU machine has no imageio). PIL and cv2 are
+imported inside the functions that use them, so the package imports
+without them.
 """
 
 from __future__ import annotations
@@ -43,13 +45,15 @@ def stack_frames(frames: Sequence[np.ndarray]) -> np.ndarray:
 
 def save_video(frames: Sequence[np.ndarray], path: str, fps: int = 10):
     """[-1, 1] float or uint8 [H, W, 3] frames -> mp4 (cv2.VideoWriter) or
-    gif (imageio), by the path's extension."""
+    gif (PIL), by the path's extension."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     imgs = stack_frames([f if f.dtype == np.uint8 else tensor_to_uint8(f) for f in frames])
     if path.endswith(".gif"):
-        import imageio
+        from PIL import Image
 
-        imageio.mimsave(path, list(imgs), duration=int(1000 / fps))
+        pages = [Image.fromarray(img) for img in imgs]
+        pages[0].save(path, save_all=True, append_images=pages[1:], duration=int(1000 / fps),
+                      loop=0)
         return
     import cv2
 
@@ -60,6 +64,15 @@ def save_video(frames: Sequence[np.ndarray], path: str, fps: int = 10):
     for img in imgs:
         writer.write(cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
     writer.release()
+
+
+def load_gif_frames(path: str) -> List[np.ndarray]:
+    """A gif's frames as uint8 [H, W, 3] (PIL; the pixels imageio's mimread
+    gives, alpha dropped)."""
+    from PIL import Image, ImageSequence
+
+    with Image.open(path) as gif:
+        return [np.asarray(page.convert("RGB")) for page in ImageSequence.Iterator(gif)]
 
 
 def save_gif(frames: Sequence[np.ndarray], path: str, fps: int = 10):

@@ -25,6 +25,12 @@ on what it replaces, what bounds it and how it is designed):
     sweeps over KV on K1's wgmma pipeline (or on mma.sync where that is
     faster); serves `_fa_onepass_kernel` (csrc/flash_onepass.cu).
 
+Each kernel takes bfloat16 or float32, as the Pallas bodies take either: the
+fp32 path of each library (a separate C entry point, `<name>_f32`) computes
+what the Pallas body computes on fp32 refs with scalar FFMAs (K1 and K4 in
+csrc/attention_f32.cuh, K2 and K3 in their own sources), one design at every
+shape. `--precision fp32` runs through them.
+
 The Hopper pieces (mbarriers, TMA, wgmma, named barriers, setmaxnreg,
 clusters) are in csrc/hopper.cuh, used by K1, K3 and K4; the tensor maps are
 encoded inside each library's C entry point through the runtime's driver
@@ -33,7 +39,8 @@ tile by shape inside the library (`attention_path` names the choice).
 
 Each wrapper runs its plain PyTorch version only when handed CPU tensors. On
 CUDA tensors it launches the kernel or raises — there is no fallback — and
-adds one to its `launches` tally, keyed by shape, per launch. Each plain
+adds one to its `launches` tally, keyed by shape (with "fp32" appended for
+the fp32 path), per launch. Each plain
 version rounds where its Pallas body rounds.
 
 The kernels are compiled from the repository's sources with `nvcc` for
@@ -57,7 +64,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 _SOURCES = {"flash": "flash_attention.cu", "packed": "packed_attention.cu",
             "fused": "fused_qkv_attention.cu", "onepass": "flash_onepass.cu"}
-_HEADERS = ("mma.cuh", "hopper.cuh", "flash_hopper.cuh")
+_HEADERS = ("mma.cuh", "hopper.cuh", "flash_hopper.cuh", "attention_f32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LOG2E = 1.4426950408889634
@@ -179,7 +186,7 @@ def build_kernels() -> dict:
 
 
 _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-_ENTRY = {  # library -> (C entry point, its argtypes)
+_ENTRY = {  # library -> (C entry point, its argtypes); "<entry>_f32" takes the same
     "flash": ("moca_flash_attention", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
     "packed": ("moca_packed_attention", [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
     "fused": ("moca_fused_qkv_attention",
@@ -192,34 +199,43 @@ _ENTRY = {  # library -> (C entry point, its argtypes)
 ATTENTION_PATHS = ("mma_sync", "wgmma_kv64", "wgmma_kv128")
 
 
-def _entry(name: str):
-    """The C entry point of library `name`, built and loaded at first use."""
+def _entry(name: str, dtype=torch.bfloat16):
+    """The C entry point of library `name` for `dtype` (bfloat16, or float32:
+    the `_f32` symbol), the library built and loaded at first use."""
     if name not in _libs:
         lib = ctypes.CDLL(str(build_kernels()[name]))
         fn, argtypes = _ENTRY[name]
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _i
+        for sym in (fn, fn + "_f32"):
+            getattr(lib, sym).argtypes = argtypes
+            getattr(lib, sym).restype = _i
         lib.moca_cuda_error_string.argtypes = [_i]
         lib.moca_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
-    return _libs[name], getattr(_libs[name], _ENTRY[name][0])
+    sym = _ENTRY[name][0] + ("_f32" if dtype == torch.float32 else "")
+    return _libs[name], getattr(_libs[name], sym)
+
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check_inputs(q, *rest, what: str):
-    """One CUDA device, bfloat16, contiguous and 16-byte aligned (the kernels
-    copy 16-byte chunks)."""
+    """One CUDA device, one dtype that the kernels take (bfloat16 or
+    float32), contiguous and 16-byte aligned (the kernels copy 16-byte
+    chunks)."""
     for t in (q, *rest):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{what}: all inputs must lie on one CUDA device")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{what}: the kernel takes bfloat16, got {t.dtype}")
+        if t.dtype not in KERNEL_DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"{what}: the kernel takes bfloat16 or float32 inputs of one "
+                             f"dtype, got {t.dtype} beside {q.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: inputs must be 16-byte aligned")
 
 
-def _count(fn, key):
+def _count(fn, key, dtype):
+    key = key + ("fp32",) if dtype == torch.float32 else key
     fn.launches[key] = fn.launches.get(key, 0) + 1
 
 
@@ -246,9 +262,11 @@ def _attention_call(wrapper, name: str, q, k, v, path: str | None = None):
     """Launch K1 or K4 (library `name`) on q [B, Sq, H, D] and k, v
     [B, Sk, H, D]: the two take the same arguments and shapes. `path` (one of
     ATTENTION_PATHS) overrides the library's choice of design, for timing
-    the designs against each other."""
+    the designs against each other; the fp32 path has one design."""
     what = wrapper.__name__
     _check_inputs(q, k, v, what=what)
+    if path is not None and q.dtype == torch.float32:
+        raise ValueError(f"{what}: the fp32 path has one design, no `path` to choose")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if d not in (64, 128) or k.shape != (b, sk, h, d) or v.shape != k.shape:
@@ -256,19 +274,19 @@ def _attention_call(wrapper, name: str, q, k, v, path: str | None = None):
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     if b > 65535 or h > 65535:
         raise ValueError(f"{what}: batch and heads must be < 65536")
-    lib, fn = _entry(name)
+    lib, fn = _entry(name, q.dtype)
     o = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, h, d,
              d ** -0.5 * _LOG2E, -1 if path is None else ATTENTION_PATHS.index(path),
              torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, what)
-    _count(wrapper, (b, sq, sk, h, d))
+    _count(wrapper, (b, sq, sk, h, d), q.dtype)
     return o
 
 
 def flash_attention(q, k, v):
     """K1: attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] (D in
-    {64, 128}); softmax in fp32.
+    {64, 128}), bfloat16 or float32; softmax in fp32.
 
     CPU tensors take `attention_plain`; CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
@@ -278,7 +296,7 @@ def flash_attention(q, k, v):
 
 def packed_attention(q, k, v, heads: int):
     """K2: self-attention on packed heads [N, S, heads*d], S in {8,16,24,32},
-    d % 8 == 0 and d <= 128.
+    d % 8 == 0 and d <= 128, bfloat16 or float32.
 
     CPU tensors take `packed_attention_plain`; CUDA tensors launch the
     kernel."""
@@ -292,12 +310,12 @@ def packed_attention(q, k, v, heads: int):
                          f"with {heads} heads (needs d % 8 == 0, d <= 128, "
                          f"S in 8/16/24/32)")
     d = c // heads
-    lib, fn = _entry("packed")
+    lib, fn = _entry("packed", q.dtype)
     o = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, s, heads, d,
              d ** -0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, "packed_attention")
-    _count(packed_attention, (n, s, c, heads))
+    _count(packed_attention, (n, s, c, heads), q.dtype)
     return o
 
 
@@ -330,9 +348,10 @@ def fused_qkv_head_split(n: int, s: int, c: int) -> int:
 def fused_qkv_attention(x, wq, wk, wv, wo, bo, heads: int):
     """K3: to_out(attention(x wq^T, x wk^T, x wv^T)) + bo on x [N, S, C],
     S in {8,16,24,32}, C = heads * 64 <= 1280; weights in nn.Linear's [out, in]
-    layout [C, C], bias [C]. Each tile's heads are split over clusters of
-    `fused_qkv_head_split` CTAs. The wrapper passes the kernel a bf16 scratch
-    of x's shape: the heads' outputs go through device memory.
+    layout [C, C], bias [C], bfloat16 or float32. Each tile's heads are split
+    over clusters of `fused_qkv_head_split` CTAs (bf16; the fp32 path splits
+    none). The wrapper passes the kernel a scratch of x's shape and dtype: the
+    heads' outputs go through device memory.
 
     CPU tensors take `fused_qkv_attention_plain`; CUDA tensors launch the
     kernel."""
@@ -345,21 +364,22 @@ def fused_qkv_attention(x, wq, wk, wv, wo, bo, heads: int):
         raise ValueError(f"fused_qkv_attention: unsupported shapes x {tuple(x.shape)} "
                          f"with {heads} heads (needs d = 64, C <= 1280, S in 8/16/24/32, "
                          f"[C, C] weights and a [C] bias)")
-    lib, fn = _entry("fused")
+    lib, fn = _entry("fused", x.dtype)
     o = torch.empty_like(x)
     scratch = torch.empty_like(x)  # the heads' outputs, read back by the out projection
+    split = fused_qkv_head_split(n, s, c) if x.dtype == torch.bfloat16 else 1
     err = fn(x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
-             bo.data_ptr(), o.data_ptr(), scratch.data_ptr(),
-             n, s, c, fused_qkv_head_split(n, s, c), 64 ** -0.5 * _LOG2E,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             bo.data_ptr(), o.data_ptr(), scratch.data_ptr(), n, s, c, split,
+             64 ** -0.5 * _LOG2E, torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "fused_qkv_attention")
-    _count(fused_qkv_attention, (n, s, c))
+    _count(fused_qkv_attention, (n, s, c), x.dtype)
     return o
 
 
 def flash_attention_onepass(q, k, v):
     """K4: attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] (D in
-    {64, 128}) with the row max taken over the whole row before any exponent.
+    {64, 128}), bfloat16 or float32, with the row max taken over the whole
+    row before any exponent.
 
     CPU tensors take `flash_attention_onepass_plain`; CUDA tensors launch the
     kernel."""
@@ -374,7 +394,8 @@ KERNELS = (flash_attention, packed_attention, fused_qkv_attention, flash_attenti
 def reset_launch_counts():
     """Empty every wrapper's launch tally, {shape: launches} with shape
     (B, Sq, Sk, H, D) for K1 and K4, (N, S, C, heads) for K2 and (N, S, C)
-    for K3 (whose head width is always 64)."""
+    for K3 (whose head width is always 64); a launch of the fp32 path has
+    "fp32" appended to its shape."""
     for fn in KERNELS:
         fn.launches = {}
 

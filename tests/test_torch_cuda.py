@@ -13,7 +13,16 @@ relative. The same limit is held in chip_smoke.py, and each case also checks
 that planted faults exceed it: for K1, K2 and K4 the last kv tile or key left
 out and the softmax scale halved; for K3 Wq halved and the last head's Wv
 rows zeroed. K1 and K4 are held to it on each of their designs.
+
+The fp32 paths (every kernel takes float32 too) are held to their plain
+versions computed in full fp32 (`allow_tf32` off while they run) at
+FP32_TOL = 1e-4 worst-row relative L2: both sum fp32 products in other
+orders, a few 1e-6 relative on an H100; plain TF32 products would round
+each input to a 2^-11 (4.9e-4) unit, which the limit does not admit; the
+same planted faults read far above it.
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -21,6 +30,7 @@ import torch
 from moca_tpu_torch.ops import flash_attention as tfa
 
 TOL = 2e-2
+FP32_TOL = 1e-4
 
 
 def max_row_rel_err(out, ref, d=64):
@@ -248,10 +258,11 @@ def test_cuda_attention_designs_on_softmax_hazards(kernel, kind):
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    q = torch.zeros(2, 160, 2, 64, device="cuda")  # fp32: no kernel, no fallback
-    with pytest.raises(ValueError, match="bfloat16"):
+    # float16: no kernel takes it, and there is no fallback
+    q = torch.zeros(2, 160, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         tfa.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         tfa.flash_attention_onepass(q, q, q)
     p = torch.zeros(4, 16, 72, device="cuda", dtype=torch.bfloat16)  # d = 36
     with pytest.raises(ValueError, match="unsupported"):
@@ -263,3 +274,86 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     w = torch.zeros(256, 256, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.fused_qkv_attention(x, w, w, w, w, w[0], 8)
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """fp32 matmuls in full fp32 (no TF32) while the plain version runs."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape", [
+    ("flash", (1, 2560, 2560, 2, 64)),   # flash shape: S = 2560
+    ("flash", (2, 160, 160, 4, 64)),     # small S: ragged q and kv tiles
+    ("flash", (2, 640, 154, 2, 64)),     # text cross-attention, kv = 154
+    ("flash", (2, 200, 300, 2, 128)),    # D = 128
+    ("onepass", (1, 2560, 2560, 2, 64)),
+    ("onepass", (2, 160, 154, 2, 64)),
+    ("onepass", (2, 200, 300, 2, 128)),
+    ("packed", (64, 16, 128, 4)),        # S = 16, d = 32
+    ("packed", (64, 16, 320, 5)),        # S = 16, d = 64
+    ("packed", (64, 16, 256, 2)),        # S = 16, d = 128
+    ("packed", (64, 8, 128, 2)),         # S = 8: four lanes a row
+    ("packed", (16, 24, 384, 6)),        # S = 24: a lane a row, 8 lanes idle
+    ("packed", (16, 32, 256, 2)),        # S = 32, d = 128
+    ("fused", (65, 16, 320)),            # C = 320, a partial last tile
+    ("fused", (7, 24, 384)),             # S = 24: 48-token tiles
+    ("fused", (20, 8, 128)),             # S = 8
+    ("fused", (33, 16, 1280)),           # C = 1280
+])
+def test_cuda_fp32_paths_match_plain(kernel, shape):
+    """Every kernel's fp32 path against its plain version in full fp32,
+    within FP32_TOL, with the bf16 checks' planted faults above it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rnd = lambda *sh, scale=1.0: torch.randn(sh, generator=gen, device="cuda") * scale
+    tfa.reset_launch_counts()
+    if kernel in ("flash", "onepass"):
+        b, sq, sk, h, d = shape
+        q, k, v = rnd(b, sq, h, d), rnd(b, sk, h, d), rnd(b, sk, h, d)
+        fn = tfa.flash_attention_onepass if kernel == "onepass" else tfa.flash_attention
+        plain = tfa.flash_attention_onepass_plain if kernel == "onepass" else tfa.attention_plain
+        out = fn(q, k, v)
+        assert fn.launches == {shape + ("fp32",): 1}
+        cut = sk - 32  # the last fp32 kv tile left out
+        faults = (fn(q, k[:, :cut].contiguous(), v[:, :cut].contiguous()), fn(q * 0.5, k, v))
+        with _full_fp32():
+            ref = plain(q, k, v)
+    elif kernel == "packed":
+        n, s, c, heads = shape
+        d = c // heads
+        q, k, v = rnd(n, s, c), rnd(n, s, c), rnd(n, s, c)
+        out = tfa.packed_attention(q, k, v, heads)
+        assert tfa.packed_attention.launches == {shape + ("fp32",): 1}
+        v_cut = v.clone()
+        v_cut[:, -1] = 0
+        faults = (tfa.packed_attention(q, k, v_cut, heads),
+                  tfa.packed_attention(q * 0.5, k, v, heads))
+        with _full_fp32():
+            ref = tfa.packed_attention_plain(q, k, v, heads)
+    else:
+        n, s, c = shape
+        d, heads = 64, c // 64
+        x = rnd(n, s, c)
+        wq, wk, wv, wo = (rnd(c, c, scale=c ** -0.5) for _ in range(4))
+        bo = rnd(c, scale=0.1)
+        out = tfa.fused_qkv_attention(x, wq, wk, wv, wo, bo, heads)
+        assert tfa.fused_qkv_attention.launches == {shape + ("fp32",): 1}
+        wv_cut = wv.clone()
+        wv_cut[-64:] = 0
+        faults = (tfa.fused_qkv_attention(x, wq * 0.5, wk, wv, wo, bo, heads),
+                  tfa.fused_qkv_attention(x, wq, wk, wv_cut, wo, bo, heads))
+        with _full_fp32():
+            ref = tfa.fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert max_row_rel_err(out, ref, d) <= FP32_TOL
+    for fault in faults:
+        assert max_row_rel_err(fault, ref, d) > FP32_TOL

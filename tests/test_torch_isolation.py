@@ -51,7 +51,11 @@ def test_port_and_chip_smoke_import_no_jax_and_no_moca_tpu():
             "moca_tpu_torch.eval.fvd", "moca_tpu_torch.eval.i3d", "moca_tpu_torch.eval.vbench",
             "moca_tpu_torch.cli.eval_sweep", "moca_tpu_torch.parallel.mesh",
             "moca_tpu_torch.io.fastio", "moca_tpu_torch.utils.profiling",
-            "moca_tpu_torch.utils.ema", "moca_tpu_torch.utils.visualization"} <= set(port)
+            "moca_tpu_torch.utils.ema", "moca_tpu_torch.utils.visualization",
+            "moca_tpu_torch.cli.v2i", "moca_tpu_torch.cli.convert_gifs",
+            "moca_tpu_torch.cli.generate_condition_images",
+            "moca_tpu_torch.cli.full_oracle_check", "moca_tpu_torch.cli.acceptance",
+            "moca_tpu_torch.cli.verify_drive"} <= set(port)
     modules = port + _chip_smoke_imports() + ["chip_smoke"]
     code = ("import importlib, json, sys\n"
             f"for m in {modules!r}:\n"
