@@ -23,7 +23,7 @@ Phases, each failing loudly (non-zero exit, no result line):
      full fp32 (FP32_KERNEL_TOL, the same planted faults) at the shapes the
      fp32 runs (phases 3 and 14) give it, and timed beside its bf16 path on
      the same inputs, SDPA (K3: multi_head_attention_forward) in fp32 and a
-     bound at the FP32 FFMA peak;
+     bound at the 3xTF32 ceiling of the tensor cores;
   3. check the port's U-Net with the kernels (bf16, GPU) against its plain
      path (fp32, CPU) on a small input, three times: as it ships; with
      MOCA_TPU_FA_FUSED_QKV=1 MOCA_TPU_FA_ONEPASS=1 and a 154-token context
@@ -146,7 +146,11 @@ import sys
 import time
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM
-H100_FP32_FLOPS = 67e12   # FP32 FFMA peak outside the tensor cores, H100 SXM
+# The fastest unit that keeps fp32 accuracy, the fp32 paths' yardstick
+# whatever implements them: 3xTF32 on the tensor cores, the dense TF32 peak
+# over three products (H100 SXM). The FP32 FFMA peak outside the tensor
+# cores, 67e12, is 2.5x lower.
+H100_FP32_FLOPS = 494.7e12 / 3
 H100_BYTES_PER_S = 3.35e12
 # Largest relative L2 error of one output row (the 64-vector of one query and
 # head) against the plain version. Kernel and plain version round the
@@ -297,8 +301,9 @@ def hold_to_plain(what, out, ref, faults=(), d=64, tol=KERNEL_TOL):
 
 
 def peak_flops(dtype):
-    """The peak of the unit a kernel path multiplies on: the bf16 tensor
-    cores, or the FP32 FFMA pipes for the fp32 paths (scalar products)."""
+    """The peak of the fastest unit for a kernel path's products: the bf16
+    tensor cores, or for the fp32 paths the tensor cores in 3xTF32 (the
+    fastest unit that keeps fp32 accuracy), whatever the path runs on."""
     import torch
 
     return H100_FP32_FLOPS if dtype == torch.float32 else H100_BF16_FLOPS
@@ -413,7 +418,7 @@ def check_flash(b, sq, sk, h, gen, rows, reps=10, onepass=False, dtype=None):
     plain = fa.flash_attention_onepass_plain if onepass else fa.attention_plain
     lib_name = "onepass" if onepass else "flash"
     label = ("K4 flash_attention_onepass" if onepass else "K1 flash_attention") + " fp32" * fp32
-    path = "fp32_ffma" if fp32 else fa.attention_path(lib_name, b, sq, sk, h, 64)
+    path = "fp32_tf32x3" if fp32 else fa.attention_path(lib_name, b, sq, sk, h, 64)
     q, k, v = (_randn((b, s, h, 64), gen, dtype) for s in (sq, sk, sk))
     chunk = max(1, (2 << 30) // (h * sq * sk * 4))
     out = kernel(q, k, v)

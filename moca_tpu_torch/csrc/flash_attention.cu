@@ -2,8 +2,8 @@
 // D in {64, 128}.
 //
 // The fp32 path (`moca_flash_attention_f32`, csrc/attention_f32.cuh) takes
-// fp32 q, k, v and returns fp32: the online softmax on scalar FFMAs, one
-// design at every shape.
+// fp32 q, k, v and returns fp32: the online softmax in 3xTF32 on the tensor
+// cores, one design at every shape.
 //
 // Replaces the Pallas TPU kernels `_fa_kernel` (moca_tpu/ops/flash_attention.py:93,
 // launched at :765 by `flash_attention`) and `_fa_small_kernel` (:223, launched at

@@ -3,8 +3,8 @@
 // nothing is rescaled.
 //
 // The fp32 path (`moca_flash_onepass_f32`, csrc/attention_f32.cuh) takes
-// fp32 q, k, v and returns fp32: the same two sweeps on scalar FFMAs, one
-// design at every shape.
+// fp32 q, k, v and returns fp32: the same two sweeps in 3xTF32 on the tensor
+// cores, one design at every shape.
 //
 // Replaces the Pallas TPU kernel `_fa_onepass_kernel`
 // (moca_tpu/ops/flash_attention.py:184, launched at :713 by `flash_attention`

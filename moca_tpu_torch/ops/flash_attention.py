@@ -27,9 +27,10 @@ on what it replaces, what bounds it and how it is designed):
 
 Each kernel takes bfloat16 or float32, as the Pallas bodies take either: the
 fp32 path of each library (a separate C entry point, `<name>_f32`) computes
-what the Pallas body computes on fp32 refs with scalar FFMAs (K1 and K4 in
-csrc/attention_f32.cuh, K2 and K3 in their own sources), one design at every
-shape. `--precision fp32` runs through them.
+what the Pallas body computes on fp32 refs, one design at every shape: K1
+and K4 (csrc/attention_f32.cuh) with 3xTF32 products on the tensor cores, K2
+and K3 (in their own sources) with scalar FFMAs. `--precision fp32` runs
+through them.
 
 The Hopper pieces (mbarriers, TMA, wgmma, named barriers, setmaxnreg,
 clusters) are in csrc/hopper.cuh, used by K1, K3 and K4; the tensor maps are

@@ -17,9 +17,10 @@ rows zeroed. K1 and K4 are held to it on each of their designs.
 The fp32 paths (every kernel takes float32 too) are held to their plain
 versions computed in full fp32 (`allow_tf32` off while they run) at
 FP32_TOL = 1e-4 worst-row relative L2: both sum fp32 products in other
-orders, a few 1e-6 relative on an H100; plain TF32 products would round
-each input to a 2^-11 (4.9e-4) unit, which the limit does not admit; the
-same planted faults read far above it.
+orders, a few 1e-6 relative on an H100 (K1's and K4's 3xTF32 products
+within ~2^-21 of fp32 products); plain TF32 products would round each input
+to a 2^-11 (4.9e-4) unit, which the limit does not admit; the same planted
+faults read far above it.
 """
 
 import contextlib
@@ -274,6 +275,12 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     w = torch.zeros(256, 256, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unsupported"):
         tfa.fused_qkv_attention(x, w, w, w, w, w[0], 8)
+    # K1's and K4's fp32 path has one design: it takes no `path`
+    q32 = torch.zeros(2, 160, 2, 64, device="cuda")
+    for kernel in ("flash", "onepass"):
+        for path in tfa.ATTENTION_PATHS:
+            with pytest.raises(ValueError, match="one design"):
+                _attention(kernel, path, q32, q32, q32)
 
 
 @contextlib.contextmanager
@@ -287,6 +294,22 @@ def _full_fp32():
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def _attention_faults(run, q, k, v):
+    """Planted faults of K1 and K4 through their inputs: the last 64-row kv
+    tile left out (at Sk <= 64, the last key left out of PV) and, where the
+    output depends on q (Sk > 1), the softmax scale halved."""
+    sk = k.shape[1]
+    if sk > 64:
+        faults = [run(q, k[:, :sk - 64].contiguous(), v[:, :sk - 64].contiguous())]
+    else:
+        v_cut = v.clone()
+        v_cut[:, -1] = 0
+        faults = [run(q, k, v_cut)]
+    if sk > 1:
+        faults.append(run(q * 0.5, k, v))
+    return faults
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,shape", [
     ("flash", (1, 2560, 2560, 2, 64)),   # flash shape: S = 2560
@@ -296,6 +319,16 @@ def _full_fp32():
     ("onepass", (1, 2560, 2560, 2, 64)),
     ("onepass", (2, 160, 154, 2, 64)),
     ("onepass", (2, 200, 300, 2, 128)),
+    ("flash", (2, 160, 1, 2, 64)),       # Sk = 1: a tile of one key
+    ("flash", (2, 200, 17, 2, 128)),     # Sk = 17: not a multiple of 8, D = 128
+    ("flash", (2, 200, 77, 2, 64)),      # text cross-attention, kv = 77
+    ("flash", (1, 2560, 154, 2, 64)),    # kv = 154 at Sq = 2560
+    ("flash", (1, 160, 2560, 2, 128)),   # a long kv row at D = 128
+    ("onepass", (2, 200, 1, 2, 128)),
+    ("onepass", (2, 160, 17, 2, 64)),
+    ("onepass", (2, 160, 77, 2, 128)),
+    ("onepass", (1, 2560, 300, 2, 64)),
+    ("onepass", (1, 200, 2560, 2, 64)),
     ("packed", (64, 16, 128, 4)),        # S = 16, d = 32
     ("packed", (64, 16, 320, 5)),        # S = 16, d = 64
     ("packed", (64, 16, 256, 2)),        # S = 16, d = 128
@@ -322,8 +355,7 @@ def test_cuda_fp32_paths_match_plain(kernel, shape):
         plain = tfa.flash_attention_onepass_plain if kernel == "onepass" else tfa.attention_plain
         out = fn(q, k, v)
         assert fn.launches == {shape + ("fp32",): 1}
-        cut = sk - 32  # the last fp32 kv tile left out
-        faults = (fn(q, k[:, :cut].contiguous(), v[:, :cut].contiguous()), fn(q * 0.5, k, v))
+        faults = _attention_faults(fn, q, k, v)
         with _full_fp32():
             ref = plain(q, k, v)
     elif kernel == "packed":
@@ -357,3 +389,45 @@ def test_cuda_fp32_paths_match_plain(kernel, shape):
     assert max_row_rel_err(out, ref, d) <= FP32_TOL
     for fault in faults:
         assert max_row_rel_err(fault, ref, d) > FP32_TOL
+
+
+def _attention_f64(q, k, v):
+    """softmax(q k^T / sqrt(d)) v in float64: the function the fp32 inputs define."""
+    q, k, v = q.double(), k.double(), v.double()
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash", "onepass"])
+@pytest.mark.parametrize("kind", ["overflow", "underflow", "denom_overflow"])
+def test_cuda_fp32_on_softmax_hazards(kernel, kind):
+    """The softmax hazards in fp32: logits of 1e4 in
+    magnitude, equal across a row (underflow, denom_overflow) or spread by
+    hundreds (overflow). The output must be finite and as close to the
+    float64 function as FP32_TOL, or as the fp32 plain version is where
+    that is further: at logits of 1e4 an fp32 logit is only good to ~1e-3
+    (2^-24 relative), and the softmax carries that error to every row
+    whose weights are split over keys within a few units of each other."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn((2, 320, 2, 64), generator=gen, device="cuda") for _ in range(3))
+    if kind == "overflow":
+        q[0] = q[0].abs() + 40.0
+        k[0] = k[0].abs() + 40.0
+    elif kind == "denom_overflow":
+        q.fill_(3.25)
+        k.fill_(3.25)
+        v = v * 1e-5
+    else:
+        q.fill_(-40.0)
+        k.fill_(40.0)
+    plain = tfa.flash_attention_onepass_plain if kernel == "onepass" else tfa.attention_plain
+    exact = _attention_f64(q, k, v)
+    with _full_fp32():
+        tol = max(FP32_TOL, 2 * max_row_rel_err(plain(q, k, v), exact))
+    out = _attention(kernel, None, q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert max_row_rel_err(out, exact) <= tol
