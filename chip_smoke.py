@@ -2,7 +2,9 @@
 
 Phases, each failing loudly (non-zero exit, no result line):
   1. print the card's name and power limit, build the CUDA kernels from
-     moca_tpu_torch/csrc with nvcc (sm_90a) and print the build time;
+     moca_tpu_torch/csrc with nvcc (sm_90a) and print the build time, each
+     library's registers and spill, and K3's by instantiation (its fp32
+     path and its bf16 path);
   2. hold each kernel to its plain PyTorch version at every shape the main
      path gives it, with and without the reference's attention switches
      (K1 also on adversarial softmax inputs, K2 also at head widths 8, 32 and
@@ -21,9 +23,11 @@ Phases, each failing loudly (non-zero exit, no result line):
      and K4 also run the adversarial softmax inputs on every design. The
      fp32 path of every kernel is held the same way to its plain version in
      full fp32 (FP32_KERNEL_TOL, the same planted faults) at the shapes the
-     fp32 runs (phases 3 and 14) give it, and timed beside its bf16 path on
-     the same inputs, SDPA (K3: multi_head_attention_forward) in fp32 and a
-     bound at the 3xTF32 ceiling of the tensor cores;
+     fp32 runs (phases 3, 5 and 14) give it, and timed beside its bf16 path
+     on the same inputs, SDPA (K3: multi_head_attention_forward) in fp32 and
+     a bound at the 3xTF32 ceiling of the tensor cores (K3's fp32 rows also
+     with a ragged last tile; each K3 row prints its share of the bound and
+     its path, head split or not);
   3. check the port's U-Net with the kernels (bf16, GPU) against its plain
      path (fp32, CPU) on a small input, three times: as it ships; with
      MOCA_TPU_FA_FUSED_QKV=1 MOCA_TPU_FA_ONEPASS=1 and a 154-token context
@@ -41,6 +45,10 @@ Phases, each failing loudly (non-zero exit, no result line):
   5. time one FIFO U-Net forward with and without the switches, break each
      one's device time down by kernel category and read the device's idle
      share, from one torch.profiler trace each, and compare the two outputs;
+     then one full-width fp32 forward (a copy of the model in fp32) at the
+     golden clip's 8 FIFO rows, as shipped and with MOCA_TPU_FA_FUSED_QKV=1
+     (K3's fp32 path at every temporal width), each timed and its launches
+     counted over one forward, the two outputs within FP32_UNET_REL_TOL;
   6. DAVIS mode on the same model, as shipped: 72 frames [72, 320, 512, 3]
      in [-1, 1] and 72 masks (a moving 20 x 32 rectangle at 40 x 64) made
      from the seed with numpy, encoded on the card with `encode_frames`
@@ -179,6 +187,7 @@ SEG_SLEEP_S = 0.2  # the stand-in detector's time per FIFO iteration
 # rounds the scaled q); the same limit as the bf16-vs-fp32 check above.
 SWITCHED_REL_TOL = 5e-2
 SWITCHES = {"MOCA_TPU_FA_FUSED_QKV": "1", "MOCA_TPU_FA_ONEPASS": "1"}
+FUSED_ONLY = {"MOCA_TPU_FA_FUSED_QKV": "1"}
 # A batched run's clip against the single run of its prompt with the same
 # noise, relative L2 over the clip: the bf16 products round differently at
 # another batch size (cuBLAS picks its kernel by the row count), and the
@@ -227,10 +236,12 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 @contextlib.contextmanager
-def switches_on():
-    """The reference's attention switches, as its users set them."""
-    old = {k: os.environ.get(k) for k in SWITCHES}
-    os.environ.update(SWITCHES)
+def switches_on(switches=None):
+    """The reference's attention switches (`SWITCHES` unless named), as its
+    users set them."""
+    switches = SWITCHES if switches is None else switches
+    old = {k: os.environ.get(k) for k in switches}
+    os.environ.update(switches)
     try:
         yield
     finally:
@@ -375,6 +386,44 @@ def phase_build():
                   if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")]
         print(f"[ptxas {name}] {len(regs)} kernels, registers {min(regs, default=0)}-"
               f"{max(regs, default=0)}, spills: {spills or 'none'}", flush=True)
+    if "fused" in fa.build_log:  # K3 by instantiation: its fp32 path and its bf16 path
+        for kernel, regs, spill in ptxas_kernels(fa.build_log["fused"]["ptxas"]):
+            print(f"[ptxas fused] {kernel}: {regs} registers, {spill}", flush=True)
+
+
+def ptxas_kernels(log: str):
+    """(kernel<template arguments>, registers, spill line) of each entry
+    function in an `nvcc -Xptxas -v` log."""
+    out, kernel, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+        elif kernel and "bytes spill" in line:
+            spill = line.strip()
+        elif kernel and "Used" in line:
+            out.append((kernel, int(re.search(r"Used (\d+) registers", line).group(1)), spill))
+            kernel = None
+    return out
+
+
+def _kernel_name(sym: str) -> str:
+    """ns::name<args> of a mangled kernel symbol with integer and bool
+    template arguments (anonymous namespaces left out)."""
+    if not sym.startswith("_ZN"):
+        return sym
+    i, parts = 3, []
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        parts.append(sym[j:j + int(sym[i:j])])
+        i = j + int(sym[i:j])
+    args = re.match(r"I((?:L[ib]\d+E)+)E", sym[i:])
+    name = "::".join(part for part in parts if not part.startswith("_GLOBAL__N"))
+    if not args:
+        return name
+    return name + "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">"
 
 
 def _randn(shape, gen, dtype=None):
@@ -613,14 +662,14 @@ def check_fused(n, s, c, gen, rows, reps=10, dtype=None):
         unfused_ms = cuda_ms(lambda: F.linear(fa.packed_attention(
             F.linear(x, wq), F.linear(x, wk), F.linear(x, wv), heads), wo, bo), reps)
     bms, by = fused_qkv_bound_ms(n, s, c, dtype)
-    cl = 1 if fp32 else fa.fused_qkv_head_split(n, s, c)  # the wrapper's cluster size
-    path = "fp32_ffma" if fp32 else "head_split" if cl > 1 else "tiles"
+    cl = fa.fused_qkv_head_split(n, s, c, dtype)  # the wrapper's cluster size
+    path = ("tf32x3_" if fp32 else "") + ("head_split" if cl > 1 else "tiles")
     print(f"[K3 fused_qkv_attention{' fp32' * fp32} N={n} S={s} C={c} ({path}, cluster {cl})] "
           f"row_rel_err {rel:.3e} (tol {tol}, "
           f"planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} kernel {ms:.4f} ms "
           f"plain {plain_ms:.4f} ms library (multi_head_attention_forward, row_rel_err "
           f"{lib_rel:.3e} against the plain version) {lib_ms:.4f} ms unfused route (4 linears "
-          f"+ K2) {unfused_ms:.4f} ms bound {bms:.4f} ms ({by})"
+          f"+ K2) {unfused_ms:.4f} ms bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f} % of it)"
           + (f"; bf16 path {extra['bf16_ms']:.4f} ms" if fp32 else ""), flush=True)
     rows.append(dict(name=f"fused_qkv_attention{' fp32' * fp32} N={n} S={s} C={c}",
                      route="cuda", source="moca_tpu_torch/csrc/fused_qkv_attention.cu",
@@ -783,8 +832,10 @@ def fp32_shapes():
     the 154-token concept context, 2 base rows with 77); phase 3's small
     U-Net as shipped (context 77) and with both switches (context 154:
     K4 takes its cross-attention, K3 the temporal attention at d = 64 where
-    C is 320 or a multiple of 128); and one K3 and one K4 row at the golden
-    clip's widths, for their times."""
+    C is 320 or a multiple of 128); phase 5's full-width fp32 forwards at
+    the golden clip's FIFO rows (K3 at every temporal width); one K3 row with
+    a ragged last tile; and one K4 row at the golden clip's widths, for its
+    time."""
     k1, k2 = main_path_shapes(4 * ACCEPT_PARTITIONS, 2, 154, 77)
     k1 = k1 + [(16, 256, 256, 1, 64)]
     ref_k2 = unet_reference_packed_shapes(64)
@@ -793,7 +844,11 @@ def fp32_shapes():
     k2 = list(dict.fromkeys([(n, s, c, c // 64) for n, s, c in k2] + ref_k2))
     k3 = [(n, s, c) for n, s, c, heads in ref_k2
           if c // heads == 64 and (c == 320 or c % 128 == 0)]
-    k3.append((4 * ACCEPT_PARTITIONS * 2560, 16, 320))
+    # phase 5's fp32 forward with MOCA_TPU_FA_FUSED_QKV=1: every temporal
+    # attention of the golden clip's FIFO batch (C = 320 at N = 20480 among
+    # them), and a ragged last tile
+    k3 += [sh for sh in unet_shapes(4 * ACCEPT_PARTITIONS, 154)[1] if sh not in k3]
+    k3.append((21, 16, 320))
     k4 = [(16, 256, 154, 1, 64), (4 * ACCEPT_PARTITIONS * 16, 2560, 2560, 5, 64)]
     return k1, k2, k3, k4
 
@@ -2322,12 +2377,13 @@ _CATEGORIES = (  # kernel-name substrings -> category, first match wins
     ("elementwise", "elementwise"), ("vectorized", "elementwise"))
 
 
-def phase_profile(model, rows: int, ctx_len: int, f: int = 16):
+def phase_profile(model, rows: int, ctx_len: int, rows_fp32: int, f: int = 16):
     """Where one FIFO U-Net forward spends device time, as shipped and with
     both switches: CUDA-event time of the call, then one torch.profiler trace
     (device activity only) summed by kernel category, with the device's idle
     share over the trace's device span (first kernel start to last kernel
-    end). Then the two forwards' outputs on the same input are compared."""
+    end). Then the two forwards' outputs on the same input are compared.
+    Last, `fp32_forwards` at `rows_fp32` rows; returns their launches."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -2344,6 +2400,50 @@ def phase_profile(model, rows: int, ctx_len: int, f: int = 16):
         fail(f"switched U-Net forward vs default: relative max err {rel} > {SWITCHED_REL_TOL}")
     print(f"[profile] switched forward vs default forward, same input: relative max err "
           f"{rel:.3e} (tol {SWITCHED_REL_TOL})", flush=True)
+    return fp32_forwards(model, rows_fp32, ctx_len)
+
+
+def fp32_forwards(model, rows: int, ctx_len: int, f: int = 16):
+    """The full-width U-Net in fp32 on the card (a copy of the model's; its
+    kernels' fp32 paths), one forward at the golden clip's FIFO rows as
+    shipped and one with MOCA_TPU_FA_FUSED_QKV=1 (K3's fp32 path at every
+    temporal attention): each timed (CUDA events, mean of 2 after a
+    warm-up), its launches counted over one more forward, the two outputs
+    on the same input held to FP32_UNET_REL_TOL of each other. Returns
+    {run: launches}."""
+    import copy
+
+    import torch
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    unet = copy.deepcopy(model.unet).float()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((rows, f, 40, 64, 4), generator=gen, device="cuda")
+    ts = torch.randint(0, 1000, (rows, f), generator=gen, device="cuda")
+    ctx = torch.randn((rows, ctx_len, 1024), generator=gen, device="cuda")
+    out, launched, fwd_ms = {}, {}, {}
+    with torch.inference_mode():
+        for run, env, expect in (
+                ("unet_fp32_full", {}, ("flash_attention", "packed_attention")),
+                ("unet_fp32_full_fused", FUSED_ONLY, ("flash_attention", "fused_qkv_attention"))):
+            with switches_on(env):
+                fwd_ms[run] = cuda_ms(lambda: unet(x, ts, ctx, fps=10), reps=2, warmup=1)
+                fa.reset_launch_counts()
+                out[run] = unet(x, ts, ctx, fps=10)
+                torch.cuda.synchronize()
+                launched[run] = _launches(f"phase 5 {run}", expect)
+    finite = all(bool(torch.isfinite(o).all()) for o in out.values())
+    rel = rel_max(out["unet_fp32_full_fused"], out["unet_fp32_full"])
+    if not finite or not rel <= FP32_UNET_REL_TOL:
+        fail(f"fp32 U-Net forward with MOCA_TPU_FA_FUSED_QKV=1 vs as shipped: finite={finite}, "
+             f"relative max err {rel} > {FP32_UNET_REL_TOL}")
+    print(f"[profile fp32] full-width U-Net forward in fp32 at {rows} rows x {f} frames, context "
+          f"{ctx_len}: as shipped {fwd_ms['unet_fp32_full']:.1f} ms, with MOCA_TPU_FA_FUSED_QKV=1 "
+          f"{fwd_ms['unet_fp32_full_fused']:.1f} ms (CUDA events, mean of 2); outputs within "
+          f"{rel:.3e} (relative max, tol {FP32_UNET_REL_TOL})", flush=True)
+    del unet, out
+    torch.cuda.empty_cache()
+    return launched
 
 
 def profile_forward(model, x, ts, ctx, label):
@@ -2425,7 +2525,8 @@ def main(argv):
     shapes, model, main_frames = timed("phase 4, main path", phase_main_path, new_video_length,
                                        num_partitions)
     shapes.update(unet_runs)
-    timed("phase 5, profile", phase_profile, model, rows_fifo, 154)
+    shapes.update(timed("phase 5, profile", phase_profile, model, rows_fifo, 154,
+                        4 * ACCEPT_PARTITIONS))
     shapes["davis"] = timed("phase 6, DAVIS", phase_davis, model, new_video_length,
                             num_partitions)
     shapes["open_vocab"] = timed("phase 7, open vocab", phase_open_vocab, model,
@@ -2462,8 +2563,10 @@ def main(argv):
         total["launches"] += r["launches"]
         for field in ("ms", "bound_ms", "plain_ms", "library_ms"):
             total[field] += r["launches"] * r[field]
+    for total in summary.values():  # the share of its bound the kernel reached over the runs
+        total["bound_share"] = total["bound_ms"] / total["ms"] if total["ms"] else 0.0
     print(f"[kernel summary, launch-weighted] "
-          f"{json.dumps({k: {f: round(v, 1) for f, v in t.items()} for k, t in summary.items()})}",
+          f"{json.dumps({k: {f: round(v, 4) for f, v in t.items()} for k, t in summary.items()})}",
           flush=True)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

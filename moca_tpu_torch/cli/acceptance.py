@@ -73,7 +73,7 @@ import numpy as np
 import torch
 
 from moca_tpu_torch import resolve_device
-from moca_tpu_torch.cli.main import PRECISIONS
+from moca_tpu_torch.cli.main import PRECISIONS, precision_name
 from moca_tpu_torch.config import load_model_config
 from moca_tpu_torch.eval.metrics import ssim
 from moca_tpu_torch.io.checkpoint import load_torch_state_dict, split_checkpoint
@@ -127,8 +127,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "repository + ~25 GB RAM)")
     p.add_argument("--skip_golden", action="store_true",
                    help="certify conversion/tokenizer/oracles only")
-    p.add_argument("--precision", default=None, choices=sorted(PRECISIONS),
-                   help="parameter type of the towers; default fp32")
+    p.add_argument("--precision", default=None, type=precision_name, choices=sorted(PRECISIONS),
+                   help="parameter type of the towers, bf16 (bfloat16) or fp32 (float32); "
+                        "default fp32")
     p.add_argument("--reference_repo", default="VideoCrafter",
                    help="the upstream VideoCrafter repository (holds lvdm/), for the oracles")
     return p

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from moca_tpu_torch.cli.inference import sample_normal
-from moca_tpu_torch.cli.main import PRECISIONS, load_pipeline
+from moca_tpu_torch.cli.main import PRECISIONS, load_pipeline, precision_name
 from moca_tpu_torch.eval.metrics import (
     concept_alignment_scores, psnr, ssim, temporal_lpips_proxy)
 from moca_tpu_torch.eval.vbench import write_full_info
@@ -67,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--new_video_length", type=int, default=100)
     p.add_argument("--seed", type=int, default=321)
     p.add_argument("--bpe_path", default=None)
-    p.add_argument("--precision", default="bf16", choices=sorted(PRECISIONS))
+    p.add_argument("--precision", default="bf16", type=precision_name,
+                   choices=sorted(PRECISIONS), help="bf16 (bfloat16) or fp32 (float32)")
     # the Table-2 metrics whose weights the t2v checkpoint lacks
     p.add_argument("--clip_vision_ckpt", default=None,
                    help="OpenCLIP ViT-H visual state_dict → CASS/relCASS")

@@ -25,7 +25,7 @@ import os
 from typing import List
 
 from moca_tpu_torch.cli.inference import sample_normal
-from moca_tpu_torch.cli.main import PRECISIONS, load_model
+from moca_tpu_torch.cli.main import PRECISIONS, load_model, precision_name
 from moca_tpu_torch.io.prompts import load_prompts
 from moca_tpu_torch.io.video import tensor_to_uint8
 from moca_tpu_torch.models.tokenizer import load_tokenizer
@@ -44,7 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--bpe_path", type=str, default=None)
-    p.add_argument("--precision", type=str, default="bf16", choices=sorted(PRECISIONS))
+    p.add_argument("--precision", type=precision_name, default="bf16",
+                   choices=sorted(PRECISIONS), help="bf16 (bfloat16) or fp32 (float32)")
     return p
 
 

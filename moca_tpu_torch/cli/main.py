@@ -64,6 +64,15 @@ DAVIS_FRAMES = 72  # frames read from a DAVIS clip (moca_tpu/cli/main.py:185)
 PRECISIONS = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
+def precision_name(name: str) -> str:
+    """--precision of the user scripts (eval_sweep, acceptance,
+    generate_condition_images), which take every spelling that the JAX
+    scripts' `_dtype_of` takes (moca_tpu/config.py:63-68): float32 and
+    bfloat16 as fp32 and bf16. An argparse `type`; `choices` then refuses
+    any other name."""
+    return {"float32": "fp32", "bfloat16": "bf16"}.get(name, name)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="MoCA-Video on an NVIDIA GPU")
     # the reference's flags (videocrafter_main.py:236-269), defaults kept

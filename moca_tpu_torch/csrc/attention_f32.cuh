@@ -32,9 +32,11 @@
 // it would hold) once per pair of k8 steps, K and V per fragment, p from the
 // softmax's C fragments. Split at the fragment rather than once per tile into
 // hi and lo tiles: those would double the ring's shared memory and every
-// fragment load, and add a pass and a barrier per tile. The split is Veltkamp's
-// (`split_tf32`), four instructions on the FP32 pipe; cvt.rna.tf32.f32 for hi
-// and for lo ran slower on an H100.
+// fragment load, and add a pass and a barrier per tile. The split is
+// `split_tf32` in mma.cuh (beside `mma_3xtf32`): three instructions, two of
+// them on the integer pipe; cvt.rna.tf32.f32 for hi and for lo ran slower on
+// an H100, and so did Veltkamp's split (four FP32 instructions), which this
+// path took first.
 //
 // Fragment layouts of m16n8k8.tf32 (g = lane / 4, t = lane % 4): A a0 (g, k t),
 // a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4); B b0 (k t, n g), b1 (k t+4, n g); C
@@ -78,47 +80,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* head, int row
       *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-}
-
-// x = hi + lo exactly (Veltkamp's split at 13 bits, on the FP32 pipe): hi has
-// 11 significant bits, a tf32 value the products read exactly; lo has at most
-// 12, of which the products read the top 11 (a 2^-22 x truncation). The _rn
-// intrinsics keep the compiler from contracting the split into FMAs.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  const float c = __fmul_rn(x, 8193.f);
-  const float h = __fsub_rn(c, __fsub_rn(c, x));
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(__fsub_rn(x, h));
-}
-
-// c += a * b on a 16x8x8 tile, tf32 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An operand fragment split into its hi and lo parts.
-template <int N>
-struct Frag {
-  uint32_t hi[N], lo[N];
-};
-
-template <int N>
-__device__ __forceinline__ Frag<N> split(const float (&x)[N]) {
-  Frag<N> f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) split_tf32(x[i], f.hi[i], f.lo[i]);
-  return f;
-}
-
-// c += a * b in 3xTF32: the small products first, then hi * hi.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Frag<4>& a, const Frag<2>& b) {
-  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
-  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {

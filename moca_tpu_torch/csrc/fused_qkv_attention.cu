@@ -68,20 +68,44 @@
 // tile exchanged through the scratch (each CTA signals every CTA of the
 // cluster once its heads are written).
 //
-// The fp32 path (`moca_fused_qkv_attention_f32`, `f32::fused_qkv_fwd` below)
-// takes fp32 x, weights and bias and returns fp32, as the Pallas body does
-// on fp32 refs (every rounding point above is then exact). Simple first: a
-// CTA of 256 threads owns one tile of T tokens and, head by head, projects
-// q, k and v of the head ([64, 64] each) with scalar FFMAs, 4 x 4 outputs a
-// thread from [16, 64] chunks of x and of the three weights' rows staged
-// transposed in shared memory; runs the S x S attention of each sequence
-// from shared memory (four threads a row, 16 dimensions each, the logits
-// summed by shuffles, the softmax exact in fp32); and writes the head's
-// output into an fp32 scratch [N*S, C] in device memory. Once every head is
-// done, the out projection reads the tile's rows back from the scratch in
-// the same chunks, 64 output columns at a time, and adds bo. No head split:
-// the wrapper passes 1. Plain TF32 products (a 2^-11 unit) would miss the
-// fp32 limit, so none are used.
+// The fp32 path (`moca_fused_qkv_attention_f32`, `f32::tf32x3_fwd` below)
+// takes fp32 x, weights and bias and returns fp32, as the Pallas body does on
+// fp32 refs (every rounding point above is then exact). What bounds it: the
+// same 8*N*S*C^2 + 4*N*S^2*C operations, at the fastest rate that keeps fp32
+// accuracy, the tensor cores in 3xTF32 (each operand split x = hi + lo, hi a
+// tf32 value; hi*hi + hi*lo + lo*hi in fp32 accumulators; `split_tf32` and
+// `mma_3xtf32` in mma.cuh, as K1's and K4's fp32 path takes them): 1.67 ms at
+// N = 20480, S = 16, C = 320. Plain TF32 (one product, a 2^-11 unit) would
+// miss the fp32 limit.
+//
+// Design. A CTA of 8 warps owns a tile of 128 token rows (120 at S = 24, whose
+// last 8 rows are clamped copies, computed and not stored). For each of its
+// heads it runs one [128, C] x [C, 192] product (the Wq, Wk and Wv rows of the
+// head) on mma.sync.m16n8k8 in 3xTF32, each warp 64 rows x 48 columns; x and
+// the weight rows stream in 32-column chunks through a 3-stage cp.async ring,
+// raw fp32, split where the fragments are loaded (x is re-read for every head:
+// a [128, C] fp32 tile does not fit beside the ring at C = 1280). q, k and v
+// go to a staging tile in shared memory, where the S x S attention of each
+// sequence runs on mma.sync in 3xTF32 too, a warp a sequence (two at S = 8);
+// each head's output goes to an fp32 scratch [N*S, C] in device memory
+// (allocated by the wrapper). Once every head is in, the out projection reads
+// the tile's rows back from the scratch through the same ring, three
+// 64-column blocks of Wo a pass (a last pass of fewer blocks spread evenly
+// over the warps), and adds bo. Wo (6.5 MB at C = 1280) and
+// the other weights stay in L2; a 128-row tile reads each weight byte once
+// for 128 tokens. What holds it on an H100 is the instruction stream around
+// mma.sync (whose tf32 rate is about half the tensor cores' peak): the
+// splits, fragment loads and copies beside each product, and the barrier of
+// each stage. So the stages are 32 columns deep (half the barriers of 16),
+// each thread's copies come from running counters, and the split takes three
+// instructions (`split_tf32`).
+//
+// Head split (the wrapper's `fused_qkv_head_split` for fp32): where it
+// shortens the waves of CTAs a launch takes (a few tiles, or a last wave
+// nearly empty) and the heads divide, a cluster of 2, 4 or 5 CTAs shares one
+// tile, each CTA projecting and attending its share of the heads and
+// computing the same share of the out projection's blocks; the scratch is
+// exchanged through a cluster barrier (release / acquire) after a fence.
 #include "hopper.cuh"
 #include "mma.cuh"
 
@@ -604,195 +628,359 @@ int launch(const Plan& p, const Maps& maps, const void* bo, void* o, void* scrat
 }
 
 // ---------------------------------------------------------------------------
-// The fp32 path
+// The fp32 path: 3xTF32 on mma.sync.m16n8k8 (the header's note)
 // ---------------------------------------------------------------------------
 
 namespace f32 {
 
-constexpr int THREADS = 256;
-constexpr int KC = 16;  // depth of a staged GEMM chunk
+constexpr int TM = 128;        // token rows a CTA
+constexpr int THREADS = 2 * TM;  // 8 warps: 2 (token rows) x 4 (output columns) of each product
+constexpr int MT = 4, NT = 6;  // a warp's m16 and n8 tiles: 64 rows x 48 columns
+constexpr int NBW = 3;         // 64-row weight blocks a stage, at most
+constexpr int ROWS = TM + NBW * D;  // rows of a stage: TM A rows, then the weight rows
+constexpr int KH = 2;          // halves of a stage: 16 columns (a pair of k8 steps) of each row
+constexpr int KC = 16 * KH;    // columns of a stage
+constexpr int STAGE = ROWS * KC;  // floats of a stage, [KH][ROWS][16]
+constexpr int NSTAGE = 3;
+constexpr int LQ = 3 * D + 8;  // row stride (floats) of the q | k | v staging
+constexpr int BYTES = (NSTAGE * STAGE + TM * LQ) * static_cast<int>(sizeof(float));
 
-struct Smem {
-  float a[KC][TILE];         // the A operand's chunk (x or the heads' outputs), transposed
-  float b[3][KC][TILE];      // up to three weights' 64-row blocks, transposed
-  float qkv[3][TILE][D + 1];  // q, k, v of one head (padded rows)
-};
+using Acc = float[MT][NT][4];
 
-// Columns [k0, k0 + KC) of rows [0, 64) of `a` (token rows, `arows` of them
-// valid, zero past them) and of `nb` weight blocks (64 rows each) into the
-// staging chunks, transposed; one float4 a thread and operand.
-__device__ __forceinline__ void stage_chunk(Smem& sm, const float* a, int arows,
-                                            const float* const* b, int nb, long long C, int k0,
-                                            int tid) {
-  const int r = tid / 4, cc = (tid % 4) * 4;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 av = r < arows ? *reinterpret_cast<const float4*>(a + r * C + k0 + cc) : zero;
-  float4 bv[3];
-  for (int m = 0; m < nb; ++m) bv[m] = *reinterpret_cast<const float4*>(b[m] + r * C + k0 + cc);
-  __syncthreads();  // the previous chunk is consumed
-  sm.a[cc][r] = av.x;
-  sm.a[cc + 1][r] = av.y;
-  sm.a[cc + 2][r] = av.z;
-  sm.a[cc + 3][r] = av.w;
-  for (int m = 0; m < nb; ++m) {
-    sm.b[m][cc][r] = bv[m].x;
-    sm.b[m][cc + 1][r] = bv[m].y;
-    sm.b[m][cc + 2][r] = bv[m].z;
-    sm.b[m][cc + 3][r] = bv[m].w;
-  }
-  __syncthreads();
+// The A fragments of rows (g, g + 8) + 16 * mt of a [rows][ld] fp32 tile for
+// a pair of k8 steps at columns 16 j: one 16-byte load a row (columns 4t ..
+// 4t + 3; k = t, t + 4 of step 0 are columns 4t, 4t + 1, of step 1 columns
+// 4t + 2, 4t + 3: K1's relabelling of QK^T, attention_f32.cuh), split.
+__device__ __forceinline__ void a_pair(const float* row_g, int ld, Frag<4> (&a)[2]) {
+  const float4 x0 = *reinterpret_cast<const float4*>(row_g);
+  const float4 x1 = *reinterpret_cast<const float4*>(row_g + 8 * ld);
+  const float s0[4] = {x0.x, x1.x, x0.y, x1.y}, s1[4] = {x0.z, x1.z, x0.w, x1.w};
+  a[0] = split(s0);
+  a[1] = split(s1);
 }
 
-// acc[m] += the chunk's A rows 4ty.. times weight block m's rows 4tx.. .
-template <int NB>
-__device__ __forceinline__ void chunk_product(const Smem& sm, float (&acc)[NB][4][4], int ty,
-                                              int tx) {
+// The B fragments (n = g) of the same pair of k8 steps, B[k][n] = M[n][k].
+__device__ __forceinline__ void b_pair(const float* row_g, Frag<2> (&b)[2]) {
+  const float4 y = *reinterpret_cast<const float4*>(row_g);
+  const float y0[2] = {y.x, y.y}, y1[2] = {y.z, y.w};
+  b[0] = split(y0);
+  b[1] = split(y1);
+}
+
+// acc += the stage's A rows 64 wm .. 64 wm + 63 times its weight rows
+// cw wn .. cw wn + cw - 1 (transposed) in 3xTF32: a pass of nb weight blocks
+// gives each warp cw = 16 nb of its columns (48 at nb = 3), so that a pass
+// of fewer blocks takes less time. Each half of the stage is a pair of k8
+// steps: lane (g, t) reads columns 4t .. 4t + 3 of its rows (`a_pair`,
+// `b_pair`). Rows of 16 floats put a quarter-warp's 8 lanes on two rows 16
+// banks apart: no bank conflicts. The products of a step run term by term
+// (lo * hi, hi * lo, hi * hi) over all 24 accumulators, so that neighbouring
+// mma.sync are independent.
+__device__ __forceinline__ void stage_product(const float* stage, Acc& acc, int wm, int wn,
+                                              int cw, int g, int t) {
 #pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    const float4 a = *reinterpret_cast<const float4*>(&sm.a[kk][4 * ty]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
+  for (int kh = 0; kh < KH; ++kh) {
+    const float* half = stage + kh * ROWS * 16;
+    Frag<4> a[MT][2];
+    Frag<2> b[NT][2];
 #pragma unroll
-    for (int m = 0; m < NB; ++m) {
-      const float4 b = *reinterpret_cast<const float4*>(&sm.b[m][kk][4 * tx]);
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int mt = 0; mt < MT; ++mt)
+      a_pair(half + (wm * MT * 16 + mt * 16 + g) * 16 + 4 * t, 16, a[mt]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < NT; ++nt)
+      if (nt * 8 < cw) b_pair(half + (TM + wn * cw + nt * 8 + g) * 16 + 4 * t, b[nt]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[m][i][j] = fmaf(av[i], bv[j], acc[m][i][j]);
+    for (int st = 0; st < 2; ++st) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        if (nt * 8 < cw)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_tf32(acc[mt][nt], a[mt][st].lo, b[nt][st].hi[0], b[nt][st].hi[1]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        if (nt * 8 < cw)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_tf32(acc[mt][nt], a[mt][st].hi, b[nt][st].lo[0], b[nt][st].lo[1]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        if (nt * 8 < cw)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            mma_tf32(acc[mt][nt], a[mt][st].hi, b[nt][st].hi[0], b[nt][st].hi[1]);
+    }
+  }
+}
+
+// One stream of product passes over the CTA's A rows ([TM, C] of `a`; this
+// thread copies rows tid / 4 and tid / 4 + TM / 2 of every chunk, from
+// `arow`, and row tid / 4 of each weight block). Pass p multiplies them by
+// nb(p) 64-row weight blocks, block m starting at w(p, m), into acc, and
+// epi(p) runs once its last chunk is in. Chunks of KC columns go through a
+// ring of NSTAGE stages by 16-byte cp.async, raw fp32 (split where the
+// fragments are loaded), NSTAGE - 1 chunks ahead and across passes, so the
+// next head's loads overlap this head's attention.
+template <class Nb, class W, class Epi>
+__device__ __forceinline__ void stream(float* ring, const float* a, const long long (&arow)[2],
+                                       int passes, int C, Nb nb, W w, Epi epi, Acc& acc) {
+  static_assert(THREADS == 4 * D, "a thread copies one row of each 64-row weight block");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nk = C / KC;
+  const int ar = tid >> 2, aq = (tid & 3) * 4;
+  const long long wrow = static_cast<long long>(ar) * C + aq;
+  int ip = 0, ik = 0, islot = 0;  // the next chunk to copy: its pass, chunk and stage
+  auto issue = [&]() {
+    if (ip < passes) {
+      const int k0 = ik * KC, nbk = nb(ip);
+      float* st = ring + islot * STAGE + ar * 16 + aq;
+#pragma unroll
+      for (int kh = 0; kh < KH; ++kh) {
+        float* half = st + kh * ROWS * 16;
+        cp_async16(half, a + arow[0] + k0 + 16 * kh);
+        cp_async16(half + TM / 2 * 16, a + arow[1] + k0 + 16 * kh);
+#pragma unroll
+        for (int m = 0; m < NBW; ++m)
+          if (m < nbk) cp_async16(half + (TM + m * D) * 16, w(ip, m) + wrow + k0 + 16 * kh);
+      }
+      if (++ik == nk) {
+        ik = 0;
+        ++ip;
+      }
+      islot = islot + 1 == NSTAGE ? 0 : islot + 1;
+    }
+    cp_async_commit();  // an empty group past the end keeps the wait count uniform
+  };
+  for (int i = 0; i < NSTAGE - 1; ++i) issue();
+  for (int p = 0, kc = 0, slot = 0; p < passes;) {
+    if (kc == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+    }
+    cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // this chunk is in for every thread; every thread is done with the last
+    issue();          // into the last chunk's stage
+    stage_product(ring + slot * STAGE, acc, warp >> 2, warp & 3, nb(p) * D / 4, lane >> 2,
+                  lane & 3);
+    slot = slot + 1 == NSTAGE ? 0 : slot + 1;
+    if (++kc == nk) {
+      epi(p);
+      kc = 0;
+      ++p;
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The attention of head h of the CTA's tile from the q | k | v staging, in
+// 3xTF32 on mma.sync like the products, one unit a warp: at S <= 16 a unit
+// is 16 rows (two sequences at S = 8, their logits masked block-diagonally),
+// at S = 24, 32 one sequence in two m16 tiles (at S = 24 its tiles' last 8
+// rows belong to the next sequence: computed, not stored). QK^T takes the
+// products' fragments (q rows as A, k rows as B); the softmax runs on the C
+// fragments, exact in fp32, a row over its four lanes; the normalised P's C
+// fragment is PV's A fragment with k = t, t + 4 taken as keys 2t, 2t + 1, and
+// V's rows 2t, 2t + 1 as b0, b1 (K1's relabelling of PV). The output rows go
+// to the scratch; rows past T or the tensor are not stored.
+template <int S>
+__device__ __forceinline__ void attend(const float* stg, float* scratch, long long tok0,
+                                       long long ntok, int C, int h, float scale_log2) {
+  constexpr int T = (TM / S) * S;
+  constexpr int UR = S <= 16 ? 16 : S;  // rows of a unit, and its keys
+  constexpr int MTS = (UR + 15) / 16;   // m16 tiles of a unit
+  constexpr int NTS = UR / 8;           // n8 tiles of its keys
+  constexpr int UNITS = S <= 16 ? TM / 16 : T / S;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int u = warp; u < UNITS; u += THREADS / 32) {
+    const int r0 = u * UR;
+#pragma unroll
+    for (int mt = 0; mt < MTS; ++mt) {  // the unit's m16 tiles one at a time (registers)
+      float sc[NTS][4];
+#pragma unroll
+      for (int nt = 0; nt < NTS; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {  // pairs of k8 steps over d
+        Frag<4> a[2];
+        a_pair(stg + (r0 + mt * 16 + g) * LQ + 16 * j + 4 * t, LQ, a);
+#pragma unroll
+        for (int nt = 0; nt < NTS; ++nt) {
+          Frag<2> b[2];
+          b_pair(stg + (r0 + nt * 8 + g) * LQ + D + 16 * j + 4 * t, b);
+          mma_3xtf32(sc[nt], a[0], b[0]);
+          mma_3xtf32(sc[nt], a[1], b[1]);
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;  // rows g and g + 8
+#pragma unroll
+      for (int nt = 0; nt < NTS; ++nt) {
+        // at S = 8 rows g see keys 0..7 and rows g + 8 keys 8..15 (their sequences)
+        const bool ok0 = S != 8 || nt == 0, ok1 = S != 8 || nt == 1;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[nt][e] = ok0 ? sc[nt][e] * scale_log2 : -INFINITY;
+          sc[nt][2 + e] = ok1 ? sc[nt][2 + e] * scale_log2 : -INFINITY;
+          mx0 = fmaxf(mx0, sc[nt][e]);
+          mx1 = fmaxf(mx1, sc[nt][2 + e]);
+        }
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NTS; ++nt) {
+        sc[nt][0] = exp2f(sc[nt][0] - mx0);
+        sc[nt][1] = exp2f(sc[nt][1] - mx0);
+        sc[nt][2] = exp2f(sc[nt][2] - mx1);
+        sc[nt][3] = exp2f(sc[nt][3] - mx1);
+        sum0 += sc[nt][0] + sc[nt][1];
+        sum1 += sc[nt][2] + sc[nt][3];
+      }
+      const float inv0 = 1.f / quad_sum(sum0), inv1 = 1.f / quad_sum(sum1);
+      float o[D / 8][4];
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NTS; ++kk) {  // k8 steps over the keys: the logits' n8 tiles
+        const float p4[4] = {sc[kk][0] * inv0, sc[kk][2] * inv1, sc[kk][1] * inv0,
+                             sc[kk][3] * inv1};
+        const Frag<4> pa = split(p4);
+        const float* v0 = stg + (r0 + kk * 8 + 2 * t) * LQ + 2 * D + g;
+#pragma unroll
+        for (int dt = 0; dt < D / 8; ++dt) {
+          const float y[2] = {v0[dt * 8], v0[LQ + dt * 8]};
+          mma_3xtf32(o[dt], pa, split(y));
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int rs = mt * 16 + g + 8 * half, row = r0 + rs;  // rs: the row in the unit
+        if (rs < UR && row < T && tok0 + row < ntok) {
+          float* dst = scratch + (tok0 + row) * C + h * D + 2 * t;
+#pragma unroll
+          for (int dt = 0; dt < D / 8; ++dt)
+            *reinterpret_cast<float2*>(dst + 8 * dt) =
+                make_float2(o[dt][2 * half], o[dt][2 * half + 1]);
+        }
+      }
     }
   }
 }
 
 template <int S>
-__global__ void __launch_bounds__(THREADS)
-    fused_qkv_fwd(const float* __restrict__ x, const float* __restrict__ wq,
-                  const float* __restrict__ wk, const float* __restrict__ wv,
-                  const float* __restrict__ wo, const float* __restrict__ bo,
-                  float* __restrict__ o, float* scratch, long long ntok, int C,
-                  float scale_log2) {
-  constexpr int T = (TILE / S) * S;  // tokens a tile: whole sequences
-  extern __shared__ __align__(16) unsigned char smem_raw_f32[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw_f32);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long tok0 = static_cast<long long>(blockIdx.x) * T;
-  const int rows = static_cast<int>(min(static_cast<long long>(T), ntok - tok0));
-  const long long CC = C;
-  const float* xt = x + tok0 * CC;
-  float* st = scratch + tok0 * CC;
+__global__ void __launch_bounds__(THREADS, 1)
+    tf32x3_fwd(const float* __restrict__ x, const float* __restrict__ wq,
+               const float* __restrict__ wk, const float* __restrict__ wv,
+               const float* __restrict__ wo, const float* __restrict__ bo,
+               float* __restrict__ o, float* scratch, long long ntok, int C, int hsplit,
+               float scale_log2) {
+  constexpr int T = (TM / S) * S;  // tokens a tile: whole sequences
+  extern __shared__ __align__(16) float smem_f32[];
+  float* ring = smem_f32;
+  float* stg = ring + NSTAGE * STAGE;  // [TM][LQ]: q | k | v of one head
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
+  // hsplit > 1: the cluster's hsplit CTAs share one tile, each taking hper
+  // of its heads and the same share of the out projection's 64-column blocks
+  const int rank = static_cast<int>(blockIdx.x) % hsplit;
+  const long long tok0 = static_cast<long long>(blockIdx.x / hsplit) * T;
+  const int hper = C / D / hsplit, h_lo = rank * hper;
+  long long arow[2];  // rows tid / 4 and + TM / 2 of the tile, clamped into its T rows and ntok
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const long long r = tok0 + min(tid / 4 + TM / 2 * j, T - 1);
+    arow[j] = (r < ntok ? r : ntok - 1) * C + (tid & 3) * 4;
+  }
+  Acc acc;
 
-  // the attention's threads: four a token row, 16 dimensions each; rows past
-  // T (S = 24) compute on row 0 and store nothing
-  const int ar = tid / 4, part = tid % 4;
-  const int row = ar < T ? ar : 0, seq0 = (row / S) * S;
-
-  for (int h = 0; h < C / D; ++h) {
-    float acc[3][4][4] = {};
-    const float* w[3] = {wq + h * D * CC, wk + h * D * CC, wv + h * D * CC};
-    for (int k0 = 0; k0 < C; k0 += KC) {
-      stage_chunk(sm, xt, rows, w, 3, CC, k0, tid);
-      chunk_product<3>(sm, acc, ty, tx);
-    }
+  // q | k | v of each head (Wq, Wk and Wv rows of the head: one 192-row
+  // pass), staged for its attention
+  auto qkv_rows = [&](int p, int m) {
+    return (m == 0 ? wq : m == 1 ? wk : wv) + static_cast<long long>(h_lo + p) * D * C;
+  };
+  auto attention = [&](int p) {
 #pragma unroll
-    for (int m = 0; m < 3; ++m)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sm.qkv[m][4 * ty + i][4 * tx + j] = acc[m][i][j];
-    __syncthreads();
-
-    float s[S];
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        dot = fmaf(sm.qkv[0][row][16 * part + i], sm.qkv[1][seq0 + j][16 * part + i], dot);
-      s[j] = dot;
-    }
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 1);
-      s[j] += __shfl_xor_sync(0xffffffffu, s[j], 2);
-      s[j] *= scale_log2;
-      mx = fmaxf(mx, s[j]);
-    }
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      s[j] = exp2f(s[j] - mx);
-      sum += s[j];
-    }
-    const float inv = 1.f / sum;
-    if (ar < rows) {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        float out = 0.f;
-#pragma unroll
-        for (int j = 0; j < S; ++j) out = fmaf(s[j] * inv, sm.qkv[2][seq0 + j][16 * part + i], out);
-        st[ar * CC + h * D + 16 * part + i] = out;
+      for (int nt = 0; nt < NT; ++nt) {
+        float* dst = stg + (wm * MT * 16 + mt * 16 + g) * LQ + wn * NT * 8 + nt * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+        *reinterpret_cast<float2*>(dst + 8 * LQ) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
       }
-    }
-    __syncthreads();  // q, k, v consumed before the next head's overwrite them
-  }
+    __syncthreads();
+    attend<S>(stg, scratch, tok0, ntok, C, h_lo + p, scale_log2);
+  };
+  stream(ring, x, arow, hper, C, [](int) { return NBW; }, qkv_rows, attention, acc);
 
-  // the out projection over the heads' outputs, read back from the scratch
-  for (int cb = 0; cb < C / D; ++cb) {
-    float acc[1][4][4] = {};
-    const float* w[1] = {wo + cb * D * CC};
-    for (int k0 = 0; k0 < C; k0 += KC) {
-      stage_chunk(sm, st, rows, w, 1, CC, k0, tid);
-      chunk_product<1>(sm, acc, ty, tx);
-    }
+  // every head of the tile is in the scratch, from each CTA of the cluster
+  __threadfence();
+  cluster_sync();
+
+  // the out projection: this CTA's blocks of Wo, NBW a pass, plus bo
+  auto blocks = [&](int p) { return min(NBW, hper - NBW * p); };
+  auto wo_rows = [&](int p, int m) {
+    return wo + static_cast<long long>(h_lo + NBW * p + m) * D * C;
+  };
+  auto store = [&](int p) {
+    const int col0 = (h_lo + NBW * p) * D, cw = blocks(p) * D / 4;  // as stage_product
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      if (r >= rows) continue;
-      const int col = cb * D + 4 * tx;
-      *reinterpret_cast<float4*>(o + (tok0 + r) * CC + col) =
-          make_float4(acc[0][i][0] + bo[col], acc[0][i][1] + bo[col + 1],
-                      acc[0][i][2] + bo[col + 2], acc[0][i][3] + bo[col + 3]);
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt * 8 >= cw) break;
+      const int col = col0 + wn * cw + nt * 8 + 2 * t;
+      const float2 b = *reinterpret_cast<const float2*>(bo + col);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = wm * MT * 16 + mt * 16 + g + 8 * half;
+          if (row < T && tok0 + row < ntok)
+            *reinterpret_cast<float2*>(o + (tok0 + row) * C + col) =
+                make_float2(acc[mt][nt][2 * half] + b.x, acc[mt][nt][2 * half + 1] + b.y);
+        }
     }
-  }
+  };
+  stream(ring, scratch, arow, (hper + NBW - 1) / NBW, C, blocks, wo_rows, store, acc);
 }
 
 template <int S>
 int launch(const void* x, const void* wq, const void* wk, const void* wv, const void* wo,
-           const void* bo, void* o, void* scratch, long long ntok, int C, float scale_log2,
-           cudaStream_t stream) {
-  constexpr int T = (TILE / S) * S;
-  constexpr int bytes = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(fused_qkv_fwd<S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long grid = (ntok + T - 1) / T;
+           const void* bo, void* o, void* scratch, long long ntok, int C, int hsplit,
+           float scale_log2, cudaStream_t stream) {
+  constexpr int T = (TM / S) * S;
+  const long long grid = (ntok + T - 1) / T * hsplit;
   if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  fused_qkv_fwd<S><<<static_cast<unsigned>(grid), THREADS, bytes, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wq), static_cast<const float*>(wk),
-      static_cast<const float*>(wv), static_cast<const float*>(wo), static_cast<const float*>(bo),
-      static_cast<float*>(o), static_cast<float*>(scratch), ntok, C, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  return launch_cluster(tf32x3_fwd<S>, dim3(static_cast<unsigned>(grid)), dim3(THREADS), BYTES,
+                        hsplit, stream, x, wq, wk, wv, wo, bo, o, scratch, ntok, C, hsplit,
+                        scale_log2);
 }
 
 }  // namespace f32
 
 }  // namespace
 
-// The fp32 path: fp32 x, weights, bias, o and scratch; no head split
-// (hsplit must be 1).
+// The fp32 path: fp32 x, weights, bias, o and scratch. hsplit: CTAs of a
+// cluster that split one tile's heads (at most 8, dividing the heads; the
+// wrapper's `fused_qkv_head_split`).
 extern "C" int moca_fused_qkv_attention_f32(const void* x, const void* wq, const void* wk,
                                             const void* wv, const void* wo, const void* bo,
                                             void* o, void* scratch, long long N, int S, int C,
                                             int hsplit, float scale_log2, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long ntok = N * S;
-  if (!scratch || C <= 0 || C % D != 0 || C > 1280 || ntok <= 0 || hsplit != 1)
+  if (!scratch || C <= 0 || C % D != 0 || C > 1280 || ntok <= 0 || hsplit < 1 || hsplit > 8 ||
+      (C / D) % hsplit != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (S) {
-    case 8: return f32::launch<8>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, scale_log2, st);
-    case 16: return f32::launch<16>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, scale_log2, st);
-    case 24: return f32::launch<24>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, scale_log2, st);
-    case 32: return f32::launch<32>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, scale_log2, st);
+    case 8:
+      return f32::launch<8>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, hsplit, scale_log2, st);
+    case 16:
+      return f32::launch<16>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, hsplit, scale_log2, st);
+    case 24:
+      return f32::launch<24>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, hsplit, scale_log2, st);
+    case 32:
+      return f32::launch<32>(x, wq, wk, wv, wo, bo, o, scratch, ntok, C, hsplit, scale_log2, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,6 +8,12 @@
 //                         reg2 = (g, 2t+8..),    reg3 = (g+8, 2t+8..)
 //   B (16x8, col major):  reg0 = (k 2t..2t+1, n g), reg1 = (k 2t+8.., n g)
 //   C (16x8, fp32):       c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
+//
+// And fp32 products in 3xTF32 through `mma.sync.m16n8k8.tf32` (the fp32 paths
+// of K1, K3 and K4): each operand split as x = hi + lo with hi a tf32 value,
+// hi*hi + hi*lo + lo*hi summed in fp32 accumulators, within ~2^-21 of an
+// fp32 product. Fragments of m16n8k8.tf32: A a0 (g, k t), a1 (g+8, t),
+// a2 (g, t+4), a3 (g+8, t+4); B b0 (k t, n g), b1 (k t+4, n g); C as above.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -101,6 +107,48 @@ __device__ __forceinline__ const bf16* frag_a_addr(const bf16* base, int ld, int
 __device__ __forceinline__ const bf16* frag_bt_addr(const bf16* base, int ld, int n0, int k0,
                                                     int lane) {
   return base + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ld + k0 + ((lane >> 3) & 1) * 8;
+}
+
+// x = hi + lo exactly: hi is x rounded to the nearest tf32 value on its bit
+// pattern (half a tf32 unit added to the magnitude, the low 13 bits cleared:
+// two integer instructions), 11 significant bits the products read exactly;
+// lo = x - hi (exact) has at most 12, of which the products read the top 11
+// (a 2^-22 x truncation). Veltkamp's split (x * 8193, three subtractions, the
+// same hi but at ties) takes four FP32 instructions, and K3's fp32 path ran
+// slower with it on an H100; cvt.rna.tf32.f32 for hi and lo made K1's slower.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// c += a * b on a 16x8x8 tile, tf32 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An operand fragment split into its hi and lo parts.
+template <int N>
+struct Frag {
+  uint32_t hi[N], lo[N];
+};
+
+template <int N>
+__device__ __forceinline__ Frag<N> split(const float (&x)[N]) {
+  Frag<N> f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], f.hi[i], f.lo[i]);
+  return f;
+}
+
+// c += a * b in 3xTF32: the small products first, then hi * hi.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Frag<4>& a, const Frag<2>& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
 }
 
 }  // namespace moca

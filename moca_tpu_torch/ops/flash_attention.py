@@ -17,9 +17,10 @@ on what it replaces, what bounds it and how it is designed):
     any d; other head widths take the plain path (ops/attention.py);
   * K3 `fused_qkv_attention(x, wq, wk, wv, wo, bo, heads)` — q/k/v
     projections, tiny-S attention and the out projection of [N, S, C] in one
-    kernel, d = 64: the weights streamed by TMA into wgmma, a tile's heads
-    split over a cluster where `fused_qkv_head_split` says so; serves
-    `_fused_qkv_kernel` (csrc/fused_qkv_attention.cu);
+    kernel, d = 64: the weights streamed by TMA into wgmma (fp32: by
+    cp.async into 3xTF32 on mma.sync), a tile's heads split over a cluster
+    where `fused_qkv_head_split` says so; serves `_fused_qkv_kernel`
+    (csrc/fused_qkv_attention.cu);
   * K4 `flash_attention_onepass(q, k, v)` — K1's function with the row max
     taken before any exponent and nothing rescaled, D in {64, 128}: two
     sweeps over KV on K1's wgmma pipeline (or on mma.sync where that is
@@ -27,10 +28,10 @@ on what it replaces, what bounds it and how it is designed):
 
 Each kernel takes bfloat16 or float32, as the Pallas bodies take either: the
 fp32 path of each library (a separate C entry point, `<name>_f32`) computes
-what the Pallas body computes on fp32 refs, one design at every shape: K1
-and K4 (csrc/attention_f32.cuh) with 3xTF32 products on the tensor cores, K2
-and K3 (in their own sources) with scalar FFMAs. `--precision fp32` runs
-through them.
+what the Pallas body computes on fp32 refs, one design at every shape: K1,
+K3 and K4 with 3xTF32 products on the tensor cores (K1 and K4 in
+csrc/attention_f32.cuh, K3 in its own source), K2 with scalar FFMAs.
+`--precision fp32` runs through them.
 
 The Hopper pieces (mbarriers, TMA, wgmma, named barriers, setmaxnreg,
 clusters) are in csrc/hopper.cuh, used by K1, K3 and K4; the tensor maps are
@@ -327,16 +328,31 @@ def packed_kernel_takes(seq_len: int, channels: int, heads: int) -> bool:
             and (channels // heads) % 8 == 0 and 0 < channels // heads <= 128)
 
 
-# K3's head split: at C = 1280 (one weight block a stage), where the tiles
-# leave most of the card's SMs idle, a cluster of `split` CTAs shares one tile
-# and splits its heads and output blocks, so that the grid fills up to one wave.
-FUSED_SPLIT_MAX_CTAS = 132  # one wave on an H100 SXM (132 SMs)
+# K3's head split: a cluster of `split` CTAs shares one tile and splits its
+# heads and output blocks. The bf16 path splits at C = 1280 only (one weight
+# block a stage), where the tiles leave most of the card's SMs idle, so that
+# the grid fills up to one wave. The fp32 path (one CTA an SM, 128-token
+# tiles) splits where that shortens the waves of CTAs a launch takes, at any
+# width whose heads divide: a grid of 1.2 waves takes two.
+FUSED_SPLIT_MAX_CTAS = 132  # one wave on an H100 SXM (132 SMs, one CTA each)
+FUSED_F32_TILE = 128        # token rows of an fp32 tile (whole sequences: 120 at S = 24)
 
 
-def fused_qkv_head_split(n: int, s: int, c: int) -> int:
-    """CTAs that split one tile's heads at x [n, s, c]: at C = 1280 the
-    largest of 4 and 2 that divides the heads and keeps tiles * split within
-    FUSED_SPLIT_MAX_CTAS; else 1 (no split, as at every narrower width)."""
+def fused_qkv_head_split(n: int, s: int, c: int, dtype=torch.bfloat16) -> int:
+    """CTAs that split one tile's heads at x [n, s, c]. bfloat16: at C = 1280
+    the largest of 4 and 2 that divides the heads and keeps tiles * split
+    within FUSED_SPLIT_MAX_CTAS, else 1. float32: of 1, 2, 4 and 5 (C = 320's
+    heads) dividing the heads, the one that takes the fewest waves of CTAs
+    for the tile's work (ceil(tiles * split / FUSED_SPLIT_MAX_CTAS) / split),
+    each larger split only for more than a tenth fewer."""
+    if dtype == torch.float32:
+        tiles = -(-(n * s) // (FUSED_F32_TILE // s * s))
+        waves = lambda k: -(-(tiles * k) // FUSED_SPLIT_MAX_CTAS) / k
+        best = 1
+        for split in (2, 4, 5):
+            if (c // 64) % split == 0 and waves(split) < 0.9 * waves(best):
+                best = split
+        return best
     if c <= 640:
         return 1
     tiles = -(-(n * s) // ((64 // s) * s))
@@ -350,9 +366,9 @@ def fused_qkv_attention(x, wq, wk, wv, wo, bo, heads: int):
     """K3: to_out(attention(x wq^T, x wk^T, x wv^T)) + bo on x [N, S, C],
     S in {8,16,24,32}, C = heads * 64 <= 1280; weights in nn.Linear's [out, in]
     layout [C, C], bias [C], bfloat16 or float32. Each tile's heads are split
-    over clusters of `fused_qkv_head_split` CTAs (bf16; the fp32 path splits
-    none). The wrapper passes the kernel a scratch of x's shape and dtype: the
-    heads' outputs go through device memory.
+    over clusters of `fused_qkv_head_split` CTAs. The wrapper passes the
+    kernel a scratch of x's shape and dtype: the heads' outputs go through
+    device memory.
 
     CPU tensors take `fused_qkv_attention_plain`; CUDA tensors launch the
     kernel."""
@@ -368,7 +384,7 @@ def fused_qkv_attention(x, wq, wk, wv, wo, bo, heads: int):
     lib, fn = _entry("fused", x.dtype)
     o = torch.empty_like(x)
     scratch = torch.empty_like(x)  # the heads' outputs, read back by the out projection
-    split = fused_qkv_head_split(n, s, c) if x.dtype == torch.bfloat16 else 1
+    split = fused_qkv_head_split(n, s, c, x.dtype)
     err = fn(x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
              bo.data_ptr(), o.data_ptr(), scratch.data_ptr(), n, s, c, split,
              64 ** -0.5 * _LOG2E, torch.cuda.current_stream(x.device).cuda_stream)

@@ -17,7 +17,7 @@ rows zeroed. K1 and K4 are held to it on each of their designs.
 The fp32 paths (every kernel takes float32 too) are held to their plain
 versions computed in full fp32 (`allow_tf32` off while they run) at
 FP32_TOL = 1e-4 worst-row relative L2: both sum fp32 products in other
-orders, a few 1e-6 relative on an H100 (K1's and K4's 3xTF32 products
+orders, a few 1e-6 relative on an H100 (K1's, K3's and K4's 3xTF32 products
 within ~2^-21 of fp32 products); plain TF32 products would round each input
 to a 2^-11 (4.9e-4) unit, which the limit does not admit; the same planted
 faults read far above it.
@@ -389,6 +389,53 @@ def test_cuda_fp32_paths_match_plain(kernel, shape):
     assert max_row_rel_err(out, ref, d) <= FP32_TOL
     for fault in faults:
         assert max_row_rel_err(fault, ref, d) > FP32_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,c,split", [
+    (20, 8, 64, 1),       # S = 8, one head: 160 tokens, a ragged second tile
+    (9, 32, 64, 1),       # S = 32: 288 tokens, a ragged third tile
+    (21, 16, 320, 5),     # a ragged last tile, the 5 heads over clusters of 5
+    (11, 24, 320, 5),     # S = 24: 120-token tiles, 264 tokens
+    (40, 32, 320, 5),     # S = 32 at C = 320: 10 whole tiles
+    (1000, 16, 320, 1),   # 125 tiles: no split
+    (64, 16, 128, 2),     # 8 tiles: the heads split over 2 CTAs
+    (256, 16, 512, 4),    # phase 3's init attention: 32 tiles, clusters of 4
+    (5, 8, 1280, 5),      # S = 8 at C = 1280, below one tile, clusters of 5
+    (7, 24, 1280, 5),     # S = 24 at C = 1280: 168 tokens, clusters of 5
+    (240, 16, 1280, 4),   # C = 1280, 30 tiles: clusters of 4
+    (512, 16, 1280, 2),   # 64 tiles: clusters of 2
+    (300, 16, 1280, 5),   # 38 tiles: clusters of 5
+    (1100, 16, 1280, 4),  # 138 tiles: 2 waves unsplit, 5 of 4x as many CTAs
+    (1056, 16, 1280, 1),  # 132 tiles: one whole wave, no split
+])
+def test_cuda_fused_qkv_fp32_matches_plain(n, s, c, split):
+    """K3's fp32 path (3xTF32) against its plain version in full fp32 within
+    FP32_TOL, with its planted faults far above it; `split` is the cluster
+    size the wrapper asks for (`fused_qkv_head_split`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    assert tfa.fused_qkv_head_split(n, s, c, torch.float32) == split
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rnd = lambda *sh, scale=1.0: torch.randn(sh, generator=gen, device="cuda") * scale
+    heads = c // 64
+    x = rnd(n, s, c)
+    wq, wk, wv, wo = (rnd(c, c, scale=c ** -0.5) for _ in range(4))
+    bo = rnd(c, scale=0.1)
+    tfa.reset_launch_counts()
+    out = tfa.fused_qkv_attention(x, wq, wk, wv, wo, bo, heads)
+    assert tfa.fused_qkv_attention.launches == {(n, s, c, "fp32"): 1}
+    wv_cut = wv.clone()
+    wv_cut[-64:] = 0
+    faults = (tfa.fused_qkv_attention(x, wq * 0.5, wk, wv, wo, bo, heads),
+              tfa.fused_qkv_attention(x, wq, wk, wv_cut, wo, bo, heads))
+    with _full_fp32():
+        ref = tfa.fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert max_row_rel_err(out, ref) <= FP32_TOL
+    for fault in faults:
+        assert max_row_rel_err(fault, ref) > 100 * FP32_TOL
 
 
 def _attention_f64(q, k, v):

@@ -2,8 +2,8 @@
 moca_tpu_torch/csrc/attention_f32.cuh), emulated on the CPU.
 
 The kernel cannot run here; its arithmetic can. `_split` is the kernel's
-`split_tf32` (Veltkamp's split at 13 bits in fp32: hi has 11 significant
-bits, a tf32 value; lo = x - hi exactly), `_tf32` what the tensor cores read
+`split_tf32` (hi is x rounded to the nearest tf32 value on its bit pattern,
+11 significant bits; lo = x - hi exactly), `_tf32` what the tensor cores read
 of a 32-bit operand (its top 19 bits), and each product is
 hi*hi + hi*lo + lo*hi summed in fp32. Over it run K1's online softmax and
 K4's two sweeps on 64-row kv tiles, as the kernel runs them. The mma.sync
@@ -46,10 +46,10 @@ def _tf32(x):
 
 
 def _split(x):
-    """The kernel's split_tf32: c = x * (2^13 + 1); hi = c - (c - x); lo = x - hi
-    (fp32, no fused multiply-add)."""
-    c = x * 8193.0
-    hi = c - (c - x)
+    """The kernel's split_tf32: hi = (bits(x) + 2^12) with the low 13 bits
+    cleared, x rounded to the nearest tf32 on its bit pattern; lo = x - hi
+    (fp32)."""
+    hi = ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
     return hi, x - hi
 
 

@@ -15,8 +15,10 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 from test_torch_davis import models  # noqa: F401  (fixture)
 from test_torch_sampling import JaxReplayNormal, one_torch_thread  # noqa: F401
@@ -26,7 +28,9 @@ import moca_tpu.config as jconfig_mod
 import moca_tpu.io.checkpoint as jckpt_mod
 import moca_tpu.models.tokenizer as jtok_mod
 from moca_tpu.models.tokenizer import HashTokenizer as JHashTokenizer
-from moca_tpu_torch.cli import convert_gifs, generate_condition_images, v2i, verify_drive
+from moca_tpu_torch.cli import (acceptance, convert_gifs, eval_sweep, generate_condition_images,
+                                v2i, verify_drive)
+from moca_tpu_torch.cli.main import PRECISIONS
 from moca_tpu_torch.io.video import load_video_frames, save_video
 from moca_tpu_torch.models.tokenizer import HashTokenizer
 from moca_tpu_torch.pipelines.t2v import T2VPipeline
@@ -46,10 +50,37 @@ def _frames(n, seed, hw=(32, 48)):
             for i in range(n)]
 
 
+@pytest.fixture(params=["numpy", "native"])
+def conversion(request, monkeypatch):
+    """Both packages' uint8 <-> float conversions pinned to one state: numpy
+    on both sides, or the host library of native/fastio.cpp on both. Each
+    package decides by itself whether its library loads (the JAX package
+    once, at import, if native/libfastio.so exists; the port at first use,
+    building its own copy), so in a parallel run the two could take
+    different paths, which differ in the last bit of uint8 -> float and
+    then by one level after the truncation back to uint8. The JAX side's
+    library is the port's build of the same source and flags."""
+    import moca_tpu.io.fastio as jfastio
+    import moca_tpu.io.video as jvideo
+    from moca_tpu_torch.io import fastio
+
+    if request.param == "numpy":
+        monkeypatch.setattr(jvideo, "_HAVE_FASTIO", False)
+        monkeypatch.setattr(fastio, "available", lambda: False)
+    else:
+        if not fastio.available():
+            pytest.skip("the host library does not build here")
+        monkeypatch.setattr(jfastio, "_LIB", fastio._load())
+        monkeypatch.setattr(jvideo, "_fastio", jfastio)
+        monkeypatch.setattr(jvideo, "_HAVE_FASTIO", True)
+    return request.param
+
+
 @pytest.mark.parametrize("frame_rate,fmt", [(1, "png"), (2, "png"), (3, "jpg")])
-def test_v2i_matches_jax_script(tmp_path, monkeypatch, frame_rate, fmt):
-    """The same mp4 through both: the same frame_{N:06d}.{fmt} names and
-    the same pixels (the same decoder and encoder on both sides)."""
+def test_v2i_matches_jax_script(tmp_path, monkeypatch, conversion, frame_rate, fmt):
+    """The same mp4 through both, each side's conversions pinned to the
+    same state (`conversion`): the same frame_{N:06d}.{fmt} names and the
+    same pixels (the same decoder and encoder on both sides)."""
     mp4 = tmp_path / "v.mp4"
     save_video(_frames(7, 1), str(mp4), fps=10)
     argv = ["--video_path", str(mp4), "--frame_rate", str(frame_rate), "--image_format", fmt]
@@ -62,6 +93,36 @@ def test_v2i_matches_jax_script(tmp_path, monkeypatch, frame_rate, fmt):
     for name in names:
         np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "port" / name)),
                                       np.asarray(Image.open(tmp_path / "jax" / name)))
+
+
+SCRIPT_PARSERS = [  # each user script with --precision, and its required flags
+    (eval_sweep, ["--ckpt_path", "model.ckpt"]),
+    (acceptance, ["--ckpt", "model.ckpt", "--bpe", "vocab.txt.gz"]),
+    (generate_condition_images, ["--ckpt_path", "model.ckpt"]),
+]
+
+
+@pytest.mark.parametrize("spelling", ["fp32", "float32", "bf16", "bfloat16"])
+@pytest.mark.parametrize("script,argv", SCRIPT_PARSERS,
+                         ids=[m.__name__.rsplit(".", 1)[-1] for m, _ in SCRIPT_PARSERS])
+def test_script_parsers_take_the_jax_precision_spellings(script, argv, spelling):
+    """--precision takes each spelling that the JAX scripts pass to
+    `_dtype_of` (moca_tpu/config.py:63-68) and maps it to the torch
+    counterpart of the dtype that gives."""
+    args = script.build_parser().parse_args(argv + ["--precision", spelling])
+    want = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}[
+        jconfig_mod._dtype_of(spelling)]
+    assert PRECISIONS[args.precision] == want
+
+
+@pytest.mark.parametrize("script,argv", SCRIPT_PARSERS,
+                         ids=[m.__name__.rsplit(".", 1)[-1] for m, _ in SCRIPT_PARSERS])
+def test_script_parsers_refuse_what_dtype_of_refuses(script, argv):
+    """A name `_dtype_of` refuses stops at argparse."""
+    with pytest.raises(ValueError):
+        jconfig_mod._dtype_of("float16")
+    with pytest.raises(SystemExit):
+        script.build_parser().parse_args(argv + ["--precision", "float16"])
 
 
 def test_convert_gifs_matches_jax_script(tmp_path):
