@@ -7,10 +7,15 @@ Phases, each failing loudly (non-zero exit, no result line):
      path and its bf16 path);
   2. hold each kernel to its plain PyTorch version at every shape the main
      path gives it, with and without the reference's attention switches
-     (K1 also on adversarial softmax inputs, K2 also at head widths 8, 32 and
-     128 at full width and at every shape phase 3's num_head_channels=32
-     U-Net gives it), show that faults planted through the kernel's inputs
-     fail that check, and time the kernel, the plain version and one PyTorch
+     (K1 also on adversarial softmax inputs; K2 also at full width at every
+     kind of head width `_packed_tiny_kernel` takes, K2_WIDTH_ROWS, in bf16
+     and fp32, at d = 32 and 128, and at every shape phase 3's
+     num_head_channels=32 and 20 U-Nets and phase 5's num_head_channels=160
+     forward give it; its rows carry the design the wrapper chose, `path`,
+     and where both designs take the width, both times, `path_ms`; and the
+     CUDA-event time of an empty launch, K2's launch floor), show that
+     faults planted through the kernel's inputs fail that check, and time
+     the kernel, the plain version and one PyTorch
      library call for the same work (for K3 multi_head_attention_forward with
      separate projection weights, beside the port's unfused route); K3 and K4
      also at shapes no run launches: K3 with a ragged last tile, below one
@@ -31,8 +36,9 @@ Phases, each failing loudly (non-zero exit, no result line):
   3. check the port's U-Net with the kernels (bf16, GPU) against its plain
      path (fp32, CPU) on a small input, three times: as it ships; with
      MOCA_TPU_FA_FUSED_QKV=1 MOCA_TPU_FA_ONEPASS=1 and a 154-token context
-     (K3, K4); at num_head_channels=32 (K2 at d=32, its launch counts set
-     to 0 just before and read just after); then the fp32 U-Net on the card
+     (K3, K4); at num_head_channels=32 and 20 (K2 at d=32 and d=20, inner
+     widths 60 and 120 at 64 and 128 channels; launch counts set to 0 just
+     before and read just after); then the fp32 U-Net on the card
      (every kernel's fp32 path) against the same CPU forward, as it ships
      and with both switches (FP32_UNET_REL_TOL);
   4. drive the main path twice: MoCAVideoPipeline at the shipped
@@ -41,7 +47,7 @@ Phases, each failing loudly (non-zero exit, no result line):
      first as it ships (K1, K2), then with both switches (K1, K3, K4), with
      every kernel's launch count set to 0 just before each run and read just
      after; every shape that a kernel received in these two runs or in the
-     d=32 U-Net must have been held to its plain version in phase 2;
+     d=32 and d=20 U-Nets must have been held to its plain version in phase 2;
   5. time one FIFO U-Net forward with and without the switches, break each
      one's device time down by kernel category and read the device's idle
      share, from one torch.profiler trace each, and compare the two outputs;
@@ -49,6 +55,12 @@ Phases, each failing loudly (non-zero exit, no result line):
      golden clip's 8 FIFO rows, as shipped and with MOCA_TPU_FA_FUSED_QKV=1
      (K3's fp32 path at every temporal width), each timed and its launches
      counted over one forward, the two outputs within FP32_UNET_REL_TOL;
+     last, one bf16 forward at the shipped widths but num_head_channels=160
+     (16 rows, context 154): K2 at every temporal and init attention (2, 4
+     and 8 heads of 160; the init attention's 8 at C=1280) and nothing else
+     (the spatial attention plain, as XLA in the reference), timed, and held
+     within SWITCHED_REL_TOL to the same forward with packed_attention
+     swapped for its plain version by this script;
   6. DAVIS mode on the same model, as shipped: 72 frames [72, 320, 512, 3]
      in [-1, 1] and 72 masks (a moving 20 x 32 rectangle at 40 x 64) made
      from the seed with numpy, encoded on the card with `encode_frames`
@@ -558,7 +570,9 @@ def check_flash_adversarial(gen):
 def check_packed(n, s, c, gen, rows, reps=20, d=64, dtype=None):
     """K2 at [n, s, c] with heads of d in `dtype` (bf16 by default) against
     its plain version (in full fp32 for the fp32 path, whose row also carries
-    the bf16 path's time on the same inputs)."""
+    the bf16 path's time on the same inputs), on the design the wrapper
+    picks (`path`) and, where the other takes the width too, on that one,
+    held to the same check and timed beside it (`path_ms`)."""
     import torch
     import torch.nn.functional as F
     from moca_tpu_torch.ops import flash_attention as fa
@@ -567,6 +581,8 @@ def check_packed(n, s, c, gen, rows, reps=20, d=64, dtype=None):
     fp32 = dtype == torch.float32
     tol, tag = kernel_tol(dtype), _fp32_tag(dtype)
     heads = c // d
+    path = fa.packed_attention_path(d)
+    label = f"packed_attention{' fp32' * fp32} [{n},{s},{c}] d={d}"
     q, k, v = (_randn((n, s, c), gen, dtype) for _ in range(3))
     out = fa.packed_attention(q, k, v, heads)
     with full_fp32():
@@ -574,11 +590,21 @@ def check_packed(n, s, c, gen, rows, reps=20, d=64, dtype=None):
     v_cut = v.clone()
     v_cut[:, -1] = 0  # planted faults: the last key left out of PV; the scale halved
     faults = (fa.packed_attention(q, k, v_cut, heads), fa.packed_attention(q * 0.5, k, v, heads))
-    rel, fault_rel = hold_to_plain(f"packed_attention{' fp32' * fp32} [{n},{s},{c}] d={d}", out,
-                                   ref, faults, d, tol=tol)
-    del faults, v_cut
+    rel, fault_rel = hold_to_plain(f"{label} ({path})", out, ref, faults, d, tol=tol)
+    del faults
     err = (out.float() - ref.float()).abs().max().item()
     ms = cuda_ms(lambda: fa.packed_attention(q, k, v, heads), reps)
+    path_ms = {path: ms}
+    for other in fa.PACKED_PATHS:  # the other design, where it takes d
+        if other == path or (other == "head_tile" and not (d % 8 == 0 and d <= 128)):
+            continue
+        faults = (fa._packed_call(q, k, v_cut, heads, path=other),
+                  fa._packed_call(q * 0.5, k, v, heads, path=other))
+        hold_to_plain(f"{label} ({other})", fa._packed_call(q, k, v, heads, path=other),
+                      ref, faults, d, tol=tol)
+        del faults
+        path_ms[other] = cuda_ms(lambda: fa._packed_call(q, k, v, heads, path=other), reps)
+    del v_cut
     extra = {}
     if fp32:
         qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
@@ -590,9 +616,11 @@ def check_packed(n, s, c, gen, rows, reps=20, d=64, dtype=None):
         lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             split(q).transpose(1, 2), split(k).transpose(1, 2), split(v).transpose(1, 2)), reps)
     bms, by = attention_bound_ms(split(q), split(k), split(v))
-    print(f"[K2 packed_attention{' fp32' * fp32} N={n} S={s} C={c} d={d}] row_rel_err {rel:.3e} "
-          f"(tol {tol}, planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} kernel "
-          f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa {lib_ms:.4f} ms bound {bms:.4f} ms ({by})"
+    print(f"[K2 packed_attention{' fp32' * fp32} N={n} S={s} C={c} d={d} ({path})] row_rel_err "
+          f"{rel:.3e} (tol {tol}, planted faults >= {fault_rel:.3e}) max_abs_err {err:.3e} "
+          f"kernel {ms:.4f} ms ({100 * bms / ms:.1f} % of bound) plain {plain_ms:.4f} ms sdpa "
+          f"{lib_ms:.4f} ms bound {bms:.4f} ms ({by}); designs "
+          f"{json.dumps({p_: round(t, 4) for p_, t in path_ms.items()})}"
           + (f"; bf16 path {extra['bf16_ms']:.4f} ms" if fp32 else ""), flush=True)
     if d != 64:
         replaces = "moca_tpu/ops/flash_attention.py:614 (_packed_tiny_kernel)"
@@ -602,11 +630,35 @@ def check_packed(n, s, c, gen, rows, reps=20, d=64, dtype=None):
         replaces = "moca_tpu/ops/flash_attention.py:559 (_packed_lane_kernel)"
     rows.append(dict(name=f"packed_attention{' fp32' * fp32} N={n} S={s} C={c}"
                      + (f" d={d}" if d != 64 else ""),
-                     route="cuda", source="moca_tpu_torch/csrc/packed_attention.cu",
+                     route="cuda", source="moca_tpu_torch/csrc/"
+                     + ("packed_span.cu" if path == "span" else "packed_attention.cu"),
                      replaces=replaces, shape=(n, s, c, heads) + tag,
                      max_abs_err=err, max_row_rel_err=rel,
                      fault_row_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
-                     bound_ms=bms, bound_by=by, library_ms=lib_ms, **extra))
+                     bound_ms=bms, bound_by=by, library_ms=lib_ms, path=path,
+                     path_ms=path_ms, **extra))
+
+
+def packed_launch_floor(gen):
+    """The CUDA-event time of one launch, 200 back to back: an empty kernel
+    through K2's library (its ctypes route), and K2 itself through
+    `packed_attention` at one [1, 16, 64] row (the wrapper's checks added),
+    the floor under K2's smallest rows."""
+    import ctypes
+
+    import torch
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    lib, _ = fa._entry("packed")
+    empty = lib.moca_packed_empty
+    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    empty_ms = cuda_ms(lambda: empty(stream), 200, warmup=5)
+    q = _randn((1, 16, 64), gen)
+    k2_ms = cuda_ms(lambda: fa.packed_attention(q, q, q, 1), 200, warmup=5)
+    print(f"[K2 launch floor] an empty kernel through the library: {1e3 * empty_ms:.2f} us a "
+          f"launch; K2 through packed_attention at [1, 16, 64]: {1e3 * k2_ms:.2f} us a launch "
+          f"(CUDA events over 200 launches)", flush=True)
 
 
 def check_fused(n, s, c, gen, rows, reps=10, dtype=None):
@@ -755,11 +807,39 @@ UNET_REF_CFG = dict(model_channels=64, num_head_channels=64, context_dim=64,
 def unet_reference_packed_shapes(head_ch: int, lat: int = 16, f: int = 16):
     """K2 [N, S, C, heads] shapes of phase 3's U-Net at num_head_channels
     `head_ch`: the 8-head init attention (C = 8 * head_ch) and the temporal
-    attention at ds 1 (C = 64) and in the middle block (ds 2, C = 128)."""
+    attention at ds 1 (64 channels) and in the middle block (ds 2, 128
+    channels), whose C is the inner width heads * head_ch (60 and 120 at
+    head_ch = 20)."""
     mc = UNET_REF_CFG["model_channels"]
     n0, n1 = lat * lat, (lat // 2) ** 2
-    return [(n0, f, 8 * head_ch, 8), (n0, f, mc, mc // head_ch),
-            (n1, f, 2 * mc, 2 * mc // head_ch)]
+    h0, h1 = mc // head_ch, 2 * mc // head_ch
+    return [(n0, f, 8 * head_ch, 8), (n0, f, h0 * head_ch, h0), (n1, f, h1 * head_ch, h1)]
+
+
+# the head width of phase 5's full-width forward at another num_head_channels
+HEAD160 = 160
+
+
+def head160_packed_shapes(rows: int, lat=(40, 64), f: int = 16):
+    """K2 [N, S, C, heads] shapes of the shipped U-Net at num_head_channels=160
+    on `rows` x f frames: the temporal attention at ds 1, 2, 4 (2, 4 and 8
+    heads of 160), the 8-head init attention (C = 1280) and the middle block
+    (8 heads)."""
+    shapes = [(rows * (lat[0] >> lvl) * (lat[1] >> lvl), f, ch, ch // HEAD160)
+              for lvl, ch in enumerate((320, 640, 1280))]
+    shapes.append((rows * lat[0] * lat[1], f, 8 * HEAD160, 8))
+    shapes.append((rows * (lat[0] >> 3) * (lat[1] >> 3), f, 1280, 1280 // HEAD160))
+    return shapes
+
+
+# K2 at full width at every kind of head width the reference's
+# `_packed_tiny_kernel` takes, as (N, S, C, d), in bf16 and in fp32: d = 20,
+# odd C (d = 33), C % 8 == 4 (d = 100), d = 160 at each temporal width, one
+# head of the whole C (d = 320, 1280), S = 8 and 24, and d = 8 (both designs)
+K2_WIDTH_ROWS = ((40960, 16, 320, 20), (40960, 16, 297, 33), (40960, 16, 300, 100),
+                 (40960, 16, 320, 160), (40960, 16, 320, 320), (10240, 16, 640, 160),
+                 (2560, 16, 1280, 160), (1280, 32, 1280, 160), (2560, 16, 1280, 1280),
+                 (40960, 8, 297, 33), (40960, 24, 297, 33), (40960, 16, 320, 8))
 
 
 def phase_kernels(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int):
@@ -776,6 +856,22 @@ def phase_kernels(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int):
     check_flash_adversarial(gen)
     for n, s, c in k2:
         check_packed(n, s, c, gen, rows)
+    packed_launch_floor(gen)
+    # K2 at other head widths: the full-width rows, every shape phase 3's
+    # num_head_channels=32 and 20 U-Nets give it, and phase 5's
+    # num_head_channels=160 forward's
+    seen = {(n, s, c, c // 64) for n, s, c in k2}
+    other = [(n, s, c, c // d) for n, s, c, d in K2_WIDTH_ROWS]
+    other += [(n, 16, c, c // d) for n, c, d in ((rows_fifo * 2560, 320, 32),
+                                                 (rows_fifo * 640, 640, 128))]
+    other += unet_reference_packed_shapes(32) + unet_reference_packed_shapes(20)
+    other += head160_packed_shapes(rows_fifo)
+    for n, s, c, heads in other:
+        if (n, s, c, heads) not in seen:
+            seen.add((n, s, c, heads))
+            check_packed(n, s, c, gen, rows, d=c // heads)
+    for n, s, c, d in K2_WIDTH_ROWS:
+        check_packed(n, s, c, gen, rows, reps=5, d=d, dtype=torch.float32)
     for n, s, c in k3:
         check_fused(n, s, c, gen, rows)
     for b, sq, sk, h, _ in k4:
@@ -791,13 +887,6 @@ def phase_kernels(rows_fifo: int, rows_base: int, ctx_fifo: int, ctx_base: int):
         check_fused(n_, s_, 512, gen, rows)
     check_flash(4, 2560, 3000, 5, gen, rows, onepass=True)
     check_flash(1, 128, 8192, 5, gen, rows, onepass=True)
-    # K2 at the head widths of `_packed_tiny_kernel`'s route, full-width N
-    for n, c, d in ((rows_fifo * 2560, 320, 8), (rows_fifo * 2560, 320, 32),
-                    (rows_fifo * 640, 640, 128)):
-        check_packed(n, 16, c, gen, rows, d=d)
-    # and at every shape phase 3's num_head_channels=32 U-Net gives it
-    for n, s, c, heads in unet_reference_packed_shapes(32):
-        check_packed(n, s, c, gen, rows, d=c // heads)
     # phase 14's condition images: one frame a row, 2 CFG rows, 77 tokens
     for b, sq, sk, h, _ in unet_shapes(2, 77, f=1)[0]:
         if (b, sq, sk, h, 64) not in k1:
@@ -917,16 +1006,19 @@ def check_unet_reference(label, ctx_len, switched, expect, dtype=None, **cfg_kw)
 
 def phase_unet_reference():
     """The U-Net checks; returns {run: launches} of the runs whose shapes
-    phase 2 holds: num_head_channels=32 (K2 at a head width other than 64)
-    and the fp32 forwards (every kernel's fp32 path)."""
+    phase 2 holds: num_head_channels=32 and 20 (K2 at head widths other than
+    64; at 20 the inner widths 60 and 120 differ from the channels, 64 and
+    128, and the heads start at unaligned channels) and the fp32 forwards
+    (every kernel's fp32 path)."""
     import torch
 
     check_unet_reference("as shipped, context 77", 77, False,
                          ("flash_attention", "packed_attention"))
     check_unet_reference("both switches, context 154", 154, True,
                          ("flash_attention", "fused_qkv_attention", "flash_attention_onepass"))
-    runs = {"unet_d32": check_unet_reference("num_head_channels=32", 77, False,
-                                             ("packed_attention",), num_head_channels=32)}
+    runs = {f"unet_d{head_ch}": check_unet_reference(
+        f"num_head_channels={head_ch}", 77, False, ("packed_attention",),
+        num_head_channels=head_ch) for head_ch in (32, 20)}
     runs["unet_fp32"] = check_unet_reference(
         "fp32, as shipped, context 77", 77, False, ("flash_attention", "packed_attention"),
         dtype=torch.float32)
@@ -2400,7 +2492,146 @@ def phase_profile(model, rows: int, ctx_len: int, rows_fp32: int, f: int = 16):
         fail(f"switched U-Net forward vs default: relative max err {rel} > {SWITCHED_REL_TOL}")
     print(f"[profile] switched forward vs default forward, same input: relative max err "
           f"{rel:.3e} (tol {SWITCHED_REL_TOL})", flush=True)
-    return fp32_forwards(model, rows_fp32, ctx_len)
+    del out, ref
+    launched = fp32_forwards(model, rows_fp32, ctx_len)
+    launched.update(head160_forward(rows, ctx_len))
+    return launched
+
+
+@contextlib.contextmanager
+def unet_packed_swapped(fn):
+    """The U-Net's `packed_attention` replaced by `fn`, a patch of this
+    script's (the package has no such switch)."""
+    from moca_tpu_torch.models import unet3d
+
+    kernel = unet3d.packed_attention
+    unet3d.packed_attention = fn
+    try:
+        yield kernel
+    finally:
+        unet3d.packed_attention = kernel
+
+
+def packed_held_to_plain(kernel, errors, first):
+    """`kernel` (K2's wrapper) that also computes the plain version on the
+    same inputs and records the worst-row error of each call in `errors`,
+    and the first call's inputs in `first`."""
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    def held(q, k, v, heads):
+        out = kernel(q, k, v, heads)
+        errors.append(max_row_rel_err(out, fa.packed_attention_plain(q, k, v, heads),
+                                      q.shape[-1] // heads))
+        if not first:
+            first.extend((q, k, v, heads))
+        return out
+    return held
+
+
+def head160_forward(rows: int, ctx_len: int, f: int = 16):
+    """One bf16 U-Net forward at the shipped widths but num_head_channels=160
+    on `rows` x f frames at 40 x 64: the temporal attention's 2, 4 and 8
+    heads of 160 and the init attention's 8 (C = 1280) on K2, the spatial
+    attention on the plain path (d = 160 is no K1 width; XLA in the
+    reference). Random weights from a CUDA generator seeded 4: N(0, 0.02^2),
+    but the temporal attentions' to_q, to_k, to_v and out projection at unit
+    gain (std fan_in^-1/2) and the LayerNorms before them at their default
+    (1, 0), so that their logits are O(1) and their output moves the
+    forward. Its launches counted over one forward (K2 once at every
+    temporal and init attention, no other kernel), then timed (CUDA events,
+    mean of 3 after that forward), every K2 call of that forward held to
+    its plain version on the same inputs (KERNEL_TOL; two planted faults on
+    the first call, its last key left out and its scale halved, must read
+    above it), and the forward held within SWITCHED_REL_TOL to the same
+    forward with `packed_attention` swapped for its plain version; the
+    forward with K2's output zeroed must read above SWITCHED_REL_TOL, so that
+    this comparison can see a kernel fault. Returns {run: launches}."""
+    import torch
+    from moca_tpu_torch.models.unet3d import (BasicTransformerBlock, CrossAttention,
+                                              TemporalTransformer, UNet3D, UNetConfig)
+    from moca_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    with torch.device("cuda"):
+        unet = UNet3D(UNetConfig(num_head_channels=HEAD160))
+    unet.to(torch.bfloat16).eval().requires_grad_(False)
+    temporal = [m for tt in unet.modules() if isinstance(tt, TemporalTransformer)
+                for m in tt.modules() if isinstance(m, CrossAttention)]
+    unit_gain = {id(lin.weight) for m in temporal
+                 for lin in (m.to_q, m.to_k, m.to_v, m.to_out[0])}
+    with torch.no_grad():
+        for p in unet.parameters():
+            std = p[0].numel() ** -0.5 if id(p) in unit_gain else 0.02
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * std)
+        for block in unet.modules():
+            if isinstance(block, BasicTransformerBlock) and block.attn1 in temporal:
+                for norm in (block.norm1, block.norm2):
+                    norm.weight.fill_(1.0)
+                    norm.bias.zero_()
+    x = torch.randn((rows, f, 40, 64, 4), generator=gen, device="cuda")
+    ts = torch.randint(0, 1000, (rows, f), generator=gen, device="cuda")
+    ctx = torch.randn((rows, ctx_len, 1024), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        errors, first = [], []
+        with unet_packed_swapped(packed_held_to_plain(fa.packed_attention, errors, first)):
+            fa.reset_launch_counts()
+            out = unet(x, ts, ctx, fps=10)
+            torch.cuda.synchronize()
+        launched = _launches("phase 5 num_head_channels=160", ("packed_attention",))
+        fwd_ms = cuda_ms(lambda: unet(x, ts, ctx, fps=10), reps=3, warmup=0)  # warm from above
+        if len(errors) != len(temporal) or not max(errors) <= KERNEL_TOL:
+            fail(f"phase 5 num_head_channels=160: K2 calls against their plain versions: "
+                 f"{len(errors)} calls, worst row {max(errors, default=math.inf)} "
+                 f"(tol {KERNEL_TOL})")
+        # the per-call check can see a fault on these inputs: the first call
+        # with its last key left out of PV and with its scale halved (launched
+        # after the tally was read)
+        q, k, v, heads = first
+        v_cut = v.clone()
+        v_cut[:, -1] = 0
+        ref = fa.packed_attention_plain(q, k, v, heads)
+        faults = [max_row_rel_err(fa.packed_attention(*args, heads), ref, q.shape[-1] // heads)
+                  for args in ((q, k, v_cut), (q * 0.5, k, v))]
+        if not min(faults) > KERNEL_TOL:
+            fail(f"phase 5 num_head_channels=160: the planted faults read {faults}, "
+                 f"not all above {KERNEL_TOL}")
+        del first, q, k, v, v_cut, ref
+        counts = {name: sum(by_shape.values()) for name, by_shape in launched.items()}
+        want = {name: 0 for name in counts} | {"packed_attention": len(temporal)}
+        if counts != want:
+            fail(f"phase 5 num_head_channels=160: launches {counts}, want {want} (K2 once at "
+                 f"each of the {len(temporal)} temporal and init attentions, nothing else)")
+        with unet_packed_swapped(fa.packed_attention_plain):
+            fa.reset_launch_counts()
+            twin = unet(x, ts, ctx, fps=10)
+            torch.cuda.synchronize()
+            if fa.packed_attention.launches:
+                fail("phase 5: the plain-swapped forward still launched K2")
+        with unet_packed_swapped(lambda q, k, v, heads: torch.zeros_like(q)):
+            dropped = rel_max(unet(x, ts, ctx, fps=10), out)
+    finite = bool(torch.isfinite(out.float()).all())
+    rel = rel_max(out, twin)
+    if not finite or not rel <= SWITCHED_REL_TOL:
+        fail(f"phase 5 num_head_channels=160: K2 forward vs its plain-swapped twin: "
+             f"finite={finite}, relative max err {rel} > {SWITCHED_REL_TOL}")
+    if not dropped > SWITCHED_REL_TOL:
+        fail(f"phase 5 num_head_channels=160: K2's output zeroed moves the forward by "
+             f"{dropped} <= {SWITCHED_REL_TOL}: the comparison with the twin cannot see a fault")
+    print(f"[profile head 160] U-Net forward at num_head_channels={HEAD160}, {rows} rows x {f} "
+          f"frames, context {ctx_len}: {fwd_ms:.1f} ms (CUDA events, mean of 3); K2 at all "
+          f"{len(temporal)} temporal and init attentions (shapes "
+          f"{sorted(launched['packed_attention'])}), the spatial attention plain; each K2 call "
+          f"within {max(errors):.3e} of its plain version (worst row, tol {KERNEL_TOL}; the "
+          f"first call's planted faults, last key left out and scale halved, read "
+          f"{faults[0]:.3e} and {faults[1]:.3e}); the forward within {rel:.3e} of the "
+          f"plain-swapped forward (relative max, tol {SWITCHED_REL_TOL}), and {dropped:.3e} "
+          f"from the forward with K2's output zeroed (must exceed the tol); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    del unet, out, twin
+    torch.cuda.empty_cache()
+    return {"unet_d160": launched}
 
 
 def fp32_forwards(model, rows: int, ctx_len: int, f: int = 16):

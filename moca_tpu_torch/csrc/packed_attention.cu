@@ -1,5 +1,5 @@
-// K2: tiny-sequence self-attention on packed heads, [N, S, H*d] bf16,
-// S in {8, 16, 24, 32}, d a multiple of 8 up to 128.
+// K2: tiny-sequence self-attention on packed heads, [N, S, H*d] bf16 or fp32,
+// S in {8, 16, 24, 32}, any head width d.
 //
 // Replaces the Pallas TPU kernels `_packed_slice_kernel`
 // (moca_tpu/ops/flash_attention.py:359, launched at :614 by `packed_attention`),
@@ -7,43 +7,60 @@
 // `_packed_tiny_kernel` (:320, launched at :614). On the product path it serves
 // the temporal transformers: S = 16 frames over N = batch*height*width pixel
 // rows, d = 64 at C = 320 (5 heads), 512 (the 8-head init attention), 640 and
-// 1280; a U-Net built with another head width (num_head_channels 8 or 32) gives
-// it that d, as it gives the reference's `_packed_tiny_kernel`. The reference
-// takes any d there; this kernel takes d % 8 == 0 up to 128 (a head's row slice
-// is then a whole number of 16-byte copies) and the wrapper raises on others.
+// 1280. A U-Net built with another head width (`num_head_channels`, any
+// positive integer) gives it that d, as it gives the reference's
+// `_packed_tiny_kernel`, which takes every width.
 //
 // What bounds it on an H100: one (row, head) problem is 4*S*S*d operations
-// against 4*S*d*2 bytes, i.e. S/2 = 8 operations per byte at S = 16, so it is
-// bound by bytes: one read of q, k and v and one write of o is the floor
-// (four [40960, 16, 320] bf16 tensors, 1.68 GB, ~0.50 ms, at C = 320).
+// against 4*S*d*itemsize bytes, S/2 operations per byte in bf16 (8 at S = 16)
+// and S/4 in fp32, at any d, so it is bound by bytes: one read of q, k and v
+// and one write of o is the floor (four [40960, 16, 320] bf16 tensors, 1.68
+// GB, ~0.50 ms, at C = 320).
 //
-// Design. One warp owns one (row, head) problem. It copies the head's d
-// contiguous channels at offset h*d of each of the S rows of q, k and v into
-// shared memory with 16-byte cp.async copies; consecutive lanes take
-// consecutive 16-byte chunks of a row, so at d = 64 every warp-wide copy moves
-// four whole 128-byte rows and the traffic is coalesced. Where d % 16 != 0 the
-// row is zero-padded to the next multiple of 16 (DP), the mma depth: the
-// padded columns add nothing to QK^T and give zero output columns that are not
+// Two designs, chosen by head width in `plan` (moca_packed_attention_plan),
+// which the wrapper's private `_packed_call` may override, for timing.
+//
+// The head-tile design (`packed_fwd<S, DP>`, d % 8 == 0 and d <= 128): one
+// warp owns one (row, head) problem. It copies the head's d contiguous
+// channels at offset h*d of each of the S rows of q, k and v into shared
+// memory with 16-byte cp.async copies; consecutive lanes take consecutive
+// 16-byte chunks of a row, so at d = 64 every warp-wide copy moves four whole
+// 128-byte rows and the traffic is coalesced. Where d % 16 != 0 the row is
+// zero-padded to the next multiple of 16 (DP), the mma depth: the padded
+// columns add nothing to QK^T and give zero output columns that are not
 // stored. QK^T and PV run on the tensor cores (mma.sync m16n8k16, bf16 in,
-// fp32 accumulate); the S x S logits stay in registers and the softmax is exact
-// in fp32, normalised before PV as the Pallas bodies do. The output is staged
-// through shared memory and written as whole rows. The lane-slice and
+// fp32 accumulate); the S x S logits stay in registers and the softmax is
+// exact in fp32, normalised before PV as the Pallas bodies do. The output is
+// staged through shared memory and written as whole rows. The lane-slice and
 // lane-mask tricks of the TPU kernels work around Mosaic's lane layout and
-// have no counterpart here.
+// have no counterpart here. A head row at another width is not a whole number
+// of aligned 16-byte chunks, so this design cannot copy it.
 //
-// The fp32 path (`moca_packed_attention_f32`, `packed_fwd_f32` below) takes
-// fp32 q, k, v and returns fp32, as the Pallas bodies do on fp32 refs: fp32
-// logits, the exact softmax normalised before PV, fp32 accumulation. It is
-// bound by bytes as the bf16 path is, with twice the bytes. One warp owns one
-// (row, head) problem and copies the head's S rows of k and v into shared
-// memory (16-byte cp.async); L = 32 / S lanes share a q row where S divides
-// 32 (one lane a row at S = 24, 8 lanes idle), each owning every L-th float4
-// chunk of the row: its partial logits over its chunks are summed by
-// shuffles, then it writes its chunks of the output. Every product is a
-// scalar FFMA: plain TF32 (a 2^-11 unit) would miss the fp32 limit.
+// The span design (`span_narrow`, `span_wide`, any d) is in packed_span.cu,
+// compiled beside this file into the same library.
+//
+// The fp32 path (`moca_packed_attention_f32`) takes fp32 q, k, v and returns
+// fp32, as the Pallas bodies do on fp32 refs: fp32 logits, the exact softmax
+// normalised before PV, fp32 accumulation. It is bound by bytes as the bf16
+// path is, with twice the bytes, and every product is a scalar FFMA (plain
+// TF32, a 2^-11 unit, would miss the fp32 limit). Head tile
+// (`packed_fwd_f32`): one warp owns one (row, head) problem and copies the
+// head's S rows of k and v into shared memory (16-byte cp.async); L = 32 / S
+// lanes share a q row where S divides 32 (one lane a row at S = 24, 8 lanes
+// idle), each owning every L-th float4 chunk of the row: its partial logits
+// over its chunks are summed by shuffles, then it writes its chunks of the
+// output.
+#include <algorithm>
+
 #include "mma.cuh"
 
 using namespace moca;
+
+namespace moca {
+// The span design at [N, S, H * d] (packed_span.cu): 0 or a CUDA error.
+int span_launch(const void* q, const void* k, const void* v, void* o, long long N, int S, int H,
+                int d, float scale_log2, bool f32, cudaStream_t st);
+}  // namespace moca
 
 namespace {
 
@@ -315,34 +332,66 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, long long N
   return static_cast<int>(cudaGetLastError());
 }
 
+bool head_tile_takes(int d) { return d % 8 == 0 && d <= 128; }
+
+// The design K2 takes at head width d: 0 the head tile (d % 8 == 0 from 16 to
+// 128), 1 the span design (every other d). At d = 8 both take the width; the
+// span design is routed there: at N = 40960, S = 16, C = 320 it was the faster
+// in fp32 in every run and in bf16 in every run but one, on a card that ran
+// instruction-heavy rows ~7 % slower, where it read 1 % slower (chip_smoke.py
+// phase 2; the readings are in PERF.md).
+int plan(int d) { return head_tile_takes(d) && d >= 16 ? 0 : 1; }
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, long long N, int S, int H,
+             int d, float scale_log2, int path, cudaStream_t st) {
+  constexpr bool F32 = sizeof(T) == 4;
+  if (H <= 0 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (path < 0) path = plan(d);
+  if (path == 0) {
+    if (!head_tile_takes(d)) return static_cast<int>(cudaErrorInvalidValue);
+    switch (S) {
+      case 8: return F32 ? launch_f32<8>(q, k, v, o, N, H, d, scale_log2, st)
+                         : launch_d<8>(q, k, v, o, N, H, d, scale_log2, st);
+      case 16: return F32 ? launch_f32<16>(q, k, v, o, N, H, d, scale_log2, st)
+                          : launch_d<16>(q, k, v, o, N, H, d, scale_log2, st);
+      case 24: return F32 ? launch_f32<24>(q, k, v, o, N, H, d, scale_log2, st)
+                          : launch_d<24>(q, k, v, o, N, H, d, scale_log2, st);
+      case 32: return F32 ? launch_f32<32>(q, k, v, o, N, H, d, scale_log2, st)
+                          : launch_d<32>(q, k, v, o, N, H, d, scale_log2, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (path != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return span_launch(q, k, v, o, N, S, H, d, scale_log2, F32, st);
+}
+
 }  // namespace
 
+extern "C" int moca_packed_attention_plan(int d) { return plan(d); }
+
+// `path`: as `plan` numbers the designs, or -1 for the plan's choice.
 extern "C" int moca_packed_attention_f32(const void* q, const void* k, const void* v, void* o,
                                          long long N, int S, int H, int d, float scale_log2,
-                                         void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d > 128 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (S) {
-    case 8: return launch_f32<8>(q, k, v, o, N, H, d, scale_log2, st);
-    case 16: return launch_f32<16>(q, k, v, o, N, H, d, scale_log2, st);
-    case 24: return launch_f32<24>(q, k, v, o, N, H, d, scale_log2, st);
-    case 32: return launch_f32<32>(q, k, v, o, N, H, d, scale_log2, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                         int path, void* stream) {
+  return dispatch<float>(q, k, v, o, N, S, H, d, scale_log2, path,
+                         static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int moca_packed_attention(const void* q, const void* k, const void* v, void* o,
-                                     long long N, int S, int H, int d, float scale_log2,
+                                     long long N, int S, int H, int d, float scale_log2, int path,
                                      void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 0 || d > 128 || d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (S) {
-    case 8: return launch_d<8>(q, k, v, o, N, H, d, scale_log2, st);
-    case 16: return launch_d<16>(q, k, v, o, N, H, d, scale_log2, st);
-    case 24: return launch_d<24>(q, k, v, o, N, H, d, scale_log2, st);
-    case 32: return launch_d<32>(q, k, v, o, N, H, d, scale_log2, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<bf16>(q, k, v, o, N, S, H, d, scale_log2, path,
+                        static_cast<cudaStream_t>(stream));
+}
+
+__global__ void empty_kernel() {}
+
+// An empty kernel launched through this library's ctypes route: the launch
+// floor that chip_smoke.py prints beside K2's smallest rows.
+extern "C" int moca_packed_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* moca_cuda_error_string(int err) {

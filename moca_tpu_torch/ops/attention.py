@@ -8,9 +8,10 @@ the one-pass branch of `flash_attention`, flash_attention.py:684-733) with
   * spatial self-attention with Sq, Sk >= 128 and d in {64, 128} -> K1, or
     K4 with MOCA_TPU_FA_ONEPASS=1 where the reference takes its one-pass
     kernel (not the small-S path, and one kv block: `onepass_full_kv`);
-  * tiny self-attention (temporal transformers, S <= 32, S % 8 == 0) -> K2,
-    or, with MOCA_TPU_FA_FUSED_QKV, the projections, the attention and the
-    out projection together -> K3 (`use_fused_qkv`, called by the U-Net);
+  * tiny self-attention (temporal transformers, S <= 32, S % 8 == 0, any
+    head width) -> K2, or, with MOCA_TPU_FA_FUSED_QKV, the projections, the
+    attention and the out projection together -> K3 (`use_fused_qkv`,
+    called by the U-Net);
   * everything the reference leaves to XLA takes the plain path, on the
     card as well: a bias, Sk < 128 (text cross-attention, kv = 77), the mid
     block's S = 40, and the rel-pos or causal branches.
@@ -88,13 +89,12 @@ def use_onepass(sq: int, sk: int) -> bool:
 
 
 def packed_shape_ok(seq_len: int, kv_len: int, bias, channels: int, heads: int) -> bool:
-    """Shapes the reference sends to its packed tiny-S kernels that K2 takes.
-
-    The reference's `_packed_tiny_kernel` takes any head width; K2 takes
-    d % 8 == 0 up to 128, and other widths take the plain path."""
+    """Shapes the reference sends to its packed tiny-S kernels
+    (`use_packed_tiny`): every head count that divides C, as K2 takes any
+    head width."""
     return (bias is None and seq_len == kv_len and seq_len <= 32
             and seq_len % 8 == 0 and 0 < channels <= 1280
-            and _flash.packed_kernel_takes(seq_len, channels, heads))
+            and heads > 0 and channels % heads == 0)
 
 
 def use_packed_tiny(q, seq_len: int, kv_len: int, bias, channels: int, heads: int) -> bool:

@@ -11,10 +11,12 @@ on what it replaces, what bounds it and how it is designed):
     faster; serves `_fa_kernel` and `_fa_small_kernel`
     (csrc/flash_attention.cu);
   * K2 `packed_attention(q, k, v, heads)` — [N, S, H*d] tiny-S attention on
-    packed heads, S in {8, 16, 24, 32}, d a multiple of 8 up to 128; serves
-    `_packed_slice_kernel`, `_packed_lane_kernel` and `_packed_tiny_kernel`
-    (csrc/packed_attention.cu). The reference's `_packed_tiny_kernel` takes
-    any d; other head widths take the plain path (ops/attention.py);
+    packed heads, S in {8, 16, 24, 32}, any head width d, as the reference's
+    `_packed_tiny_kernel` takes: a warp a head on tiles of whole 16-byte
+    chunks at d % 8 == 0 from 16 to 128, else CTAs that stage spans of whole
+    heads (the library picks by d); serves `_packed_slice_kernel`,
+    `_packed_lane_kernel` and `_packed_tiny_kernel`
+    (csrc/packed_attention.cu, the span design in csrc/packed_span.cu);
   * K3 `fused_qkv_attention(x, wq, wk, wv, wo, bo, heads)` — q/k/v
     projections, tiny-S attention and the out projection of [N, S, C] in one
     kernel, d = 64: the weights streamed by TMA into wgmma (fp32: by
@@ -37,7 +39,9 @@ The Hopper pieces (mbarriers, TMA, wgmma, named barriers, setmaxnreg,
 clusters) are in csrc/hopper.cuh, used by K1, K3 and K4; the tensor maps are
 encoded inside each library's C entry point through the runtime's driver
 entry point, so no library links -lcuda. K1 and K4 choose their design and kv
-tile by shape inside the library (`attention_path` names the choice).
+tile by shape inside the library (`attention_path` names the choice), K2 its
+design by head width and a CTA's heads (`packed_attention_path` names the
+design).
 
 Each wrapper runs its plain PyTorch version only when handed CPU tensors. On
 CUDA tensors it launches the kernel or raises — there is no fallback — and
@@ -46,8 +50,9 @@ the fp32 path), per launch. Each plain
 version rounds where its Pallas body rounds.
 
 The kernels are compiled from the repository's sources with `nvcc` for
-`sm_90a` (one process per source, started together) into `build/kernels/`
-beside the package, at first use, and loaded with ctypes.
+`sm_90a` (one process per source, started together, then linked into one
+library per kernel) into `build/kernels/` beside the package, at first use,
+and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -64,11 +69,14 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-_SOURCES = {"flash": "flash_attention.cu", "packed": "packed_attention.cu",
-            "fused": "fused_qkv_attention.cu", "onepass": "flash_onepass.cu"}
+# library -> its sources; K2's two designs are two units so that they compile
+# in parallel (the span design alone took nvcc longer than any other library)
+_SOURCES = {"flash": ("flash_attention.cu",),
+            "packed": ("packed_attention.cu", "packed_span.cu"),
+            "fused": ("fused_qkv_attention.cu",), "onepass": ("flash_onepass.cu",)}
 _HEADERS = ("mma.cuh", "hopper.cuh", "flash_hopper.cuh", "attention_f32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LOG2E = 1.4426950408889634
 
 _libs: dict = {}
@@ -146,42 +154,54 @@ def _nvcc() -> str:
                        "the attention kernels are built from source at first use")
 
 
-def _digest(source: str) -> str:
+def _digest(sources) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in (source,) + _HEADERS:
+    for name in tuple(sources) + _HEADERS:
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
 def build_kernels() -> dict:
-    """Compile every kernel source that has no up-to-date library yet.
+    """Compile every kernel library that has no up-to-date file yet.
 
-    One nvcc per source, all started together; returns {name: library path}.
-    A library's file name carries a digest of its sources and flags, so an
-    edited source is rebuilt and a stale library is never loaded."""
+    One nvcc per source, all started together, then one link per library;
+    returns {name: library path}. A library's file name carries a digest of
+    its sources and flags, so an edited source is rebuilt and a stale
+    library is never loaded."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {name: BUILD_DIR / f"libmoca_{name}_{_digest(src)}.so"
-               for name, src in _SOURCES.items()}
+    targets = {name: BUILD_DIR / f"libmoca_{name}_{_digest(srcs)}.so"
+               for name, srcs in _SOURCES.items()}
     todo = {name: path for name, path in targets.items() if not path.exists()}
     if todo:
         nvcc = _nvcc()
         t0 = time.perf_counter()
         procs = {}
         for name, path in todo.items():
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-                   str(_CSRC / _SOURCES[name])]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True),
-                           tmp, path)
+            procs[name] = []
+            for src in _SOURCES[name]:
+                obj = path.with_name(f"{path.stem}.{Path(src).stem}.{os.getpid()}.o")
+                cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj),
+                       str(_CSRC / src)]
+                procs[name].append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.STDOUT, text=True), obj))
         failed = []
-        for name, (proc, tmp, path) in procs.items():
-            out, _ = proc.communicate()
-            build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": out}
-            if proc.returncode != 0:
-                failed.append(f"{_SOURCES[name]}:\n{out}")
-            else:
-                os.replace(tmp, path)
+        for name, units in procs.items():
+            logs = [proc.communicate()[0] for proc, _ in units]
+            ok = all(proc.returncode == 0 for proc, _ in units)
+            if ok:
+                tmp = todo[name].with_suffix(f".{os.getpid()}.tmp")
+                link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                                       *(str(obj) for _, obj in units)],
+                                      capture_output=True, text=True)
+                logs.append(link.stdout + link.stderr)
+                ok = link.returncode == 0
+                if ok:
+                    os.replace(tmp, todo[name])
+            for _, obj in units:
+                obj.unlink(missing_ok=True)
+            build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": "\n".join(logs)}
+            if not ok:
+                failed.append(f"{', '.join(_SOURCES[name])}:\n" + "\n".join(logs))
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return targets
@@ -190,7 +210,7 @@ def build_kernels() -> dict:
 _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _ENTRY = {  # library -> (C entry point, its argtypes); "<entry>_f32" takes the same
     "flash": ("moca_flash_attention", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
-    "packed": ("moca_packed_attention", [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
+    "packed": ("moca_packed_attention", [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _p]),
     "fused": ("moca_fused_qkv_attention",
               [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
     "onepass": ("moca_flash_onepass", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
@@ -298,34 +318,58 @@ def flash_attention(q, k, v):
 
 def packed_attention(q, k, v, heads: int):
     """K2: self-attention on packed heads [N, S, heads*d], S in {8,16,24,32},
-    d % 8 == 0 and d <= 128, bfloat16 or float32.
+    any d, bfloat16 or float32.
 
     CPU tensors take `packed_attention_plain`; CUDA tensors launch the
     kernel."""
     if q.device.type == "cpu":
         return packed_attention_plain(q, k, v, heads)
+    return _packed_call(q, k, v, heads)
+
+
+def _packed_call(q, k, v, heads: int, path: str | None = None):
+    """Launch K2 on [N, S, heads*d]. `path` (one of PACKED_PATHS) overrides
+    the library's choice of design, for timing the designs against each
+    other; the library refuses a design that does not take d."""
     _check_inputs(q, k, v, what="packed_attention")
     n, s, c = q.shape
     if (not packed_kernel_takes(s, c, heads) or k.shape != q.shape
             or v.shape != q.shape):
         raise ValueError(f"packed_attention: unsupported shape {tuple(q.shape)} "
-                         f"with {heads} heads (needs d % 8 == 0, d <= 128, "
-                         f"S in 8/16/24/32)")
+                         f"with {heads} heads (needs S in 8/16/24/32, C a "
+                         f"multiple of the heads and S * C < 2^31)")
     d = c // heads
     lib, fn = _entry("packed", q.dtype)
     o = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, s, heads, d,
-             d ** -0.5 * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+             d ** -0.5 * _LOG2E, -1 if path is None else PACKED_PATHS.index(path),
+             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, "packed_attention")
     _count(packed_attention, (n, s, c, heads), q.dtype)
     return o
 
 
 def packed_kernel_takes(seq_len: int, channels: int, heads: int) -> bool:
-    """The shapes K2 takes: S in {8,16,24,32}, heads * d == C with d a
-    multiple of 8 up to 128."""
-    return (seq_len in (8, 16, 24, 32) and heads > 0 and channels % heads == 0
-            and (channels // heads) % 8 == 0 and 0 < channels // heads <= 128)
+    """The shapes K2 takes: S in {8,16,24,32} and C = heads * d, any d (a
+    row's slab indexed in 32 bits, S * C < 2^31)."""
+    return (seq_len in (8, 16, 24, 32) and heads > 0 and channels > 0
+            and channels % heads == 0 and seq_len * channels < 2 ** 31)
+
+
+# K2's designs, as its library numbers them (`plan` in the .cu): a warp a
+# (row, head) on a tile of the head's whole 16-byte chunks (d % 8 == 0 up to
+# 128), and CTAs that stage the chunks covering a span of whole heads of a row
+# (any d).
+PACKED_PATHS = ("head_tile", "span")
+
+
+def packed_attention_path(d: int) -> str:
+    """The design K2 takes at head width d, one of PACKED_PATHS: the
+    library's own plan."""
+    lib, _ = _entry("packed")
+    fn = lib.moca_packed_attention_plan
+    fn.argtypes, fn.restype = [_i], _i
+    return PACKED_PATHS[fn(d)]
 
 
 # K3's head split: a cluster of `split` CTAs shares one tile and splits its

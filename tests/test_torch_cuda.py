@@ -88,28 +88,75 @@ def _check(out, ref, faults, d):
         assert max_row_rel_err(fault, ref, d) > TOL
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,s,c,heads", [
-    (64, 16, 40, 5),     # d = 8: padded to the mma depth
-    (64, 16, 128, 4),    # d = 32
+_WIDTHS = [
+    (64, 16, 40, 5),     # d = 8: the span design, 5 heads a CTA
+    (64, 16, 128, 4),    # d = 32: the head tile
     (64, 16, 80, 2),     # d = 40: padded to 48
+    (64, 16, 72, 2),     # d = 36: the span design, 32-bit fragment loads
     (64, 16, 256, 2),    # d = 128
     (16, 32, 256, 2),    # d = 128 at S = 32: one warp a block
-])
-def test_cuda_packed_attention_at_other_head_widths(n, s, c, heads):
-    """K2 at the head widths of `_packed_tiny_kernel`'s route."""
+    (64, 16, 320, 16),   # d = 20: 32-bit fragment loads, 8 heads a CTA
+    (64, 16, 297, 9),    # d = 33, odd C: 16-bit loads, unaligned heads
+    (64, 16, 300, 3),    # d = 100, C % 8 == 4: two warps a head
+    (64, 16, 272, 2),    # d = 136: three warps a head, ldmatrix
+    (16, 16, 1280, 1),   # d = 1280: five blocks of four slices stream through
+    (64, 8, 297, 9),     # S = 8
+    (64, 24, 297, 9),    # S = 24: one fp32 lane a row, 8 idle
+    (16, 32, 1280, 8),   # S = 32, d = 160
+    (64, 16, 60, 3),     # the num_head_channels=20 U-Net's widths: 60, 120, 160
+    (64, 16, 7, 7),      # d = 1 (bf16 only: in fp32 its one-element rows measure
+                         # the cancellation in outputs near 0, not the kernel)
+    (64, 8, 2048, 1),    # d = 2048 (C past the reference's 1280)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,c,heads,dtype", [
+    shape + (dtype,) for shape in _WIDTHS for dtype in (torch.bfloat16, torch.float32)
+    if dtype == torch.bfloat16 or shape[2] // shape[3] > 1])
+def test_cuda_packed_attention_at_other_head_widths(n, s, c, heads, dtype):
+    """K2 at the head widths of `_packed_tiny_kernel`'s route: every width,
+    in bf16 (TOL) and fp32 (FP32_TOL)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
+    d = c // heads
     gen = torch.Generator(device="cuda").manual_seed(1)
-    q, k, v = (torch.randn((n, s, c), generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
+    q, k, v = (torch.randn((n, s, c), generator=gen, device="cuda").to(dtype) for _ in range(3))
     tfa.reset_launch_counts()
     out = tfa.packed_attention(q, k, v, heads)
-    assert tfa.packed_attention.launches == {(n, s, c, heads): 1}
+    key = (n, s, c, heads) + (("fp32",) if dtype == torch.float32 else ())
+    assert tfa.packed_attention.launches == {key: 1}
     v_cut = v.clone()
     v_cut[:, -1] = 0
     faults = (tfa.packed_attention(q, k, v_cut, heads), tfa.packed_attention(q * 0.5, k, v, heads))
-    _check(out, tfa.packed_attention_plain(q, k, v, heads), faults, c // heads)
+    with _full_fp32():
+        ref = tfa.packed_attention_plain(q, k, v, heads)
+    torch.cuda.synchronize()
+    tol = FP32_TOL if dtype == torch.float32 else TOL
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    assert max_row_rel_err(out, ref, d) <= tol
+    for fault in faults:
+        assert max_row_rel_err(fault, ref, d) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("n,s,c,heads", [(64, 16, 40, 5), (64, 16, 320, 5), (16, 24, 384, 6),
+                                         (16, 32, 256, 2), (64, 8, 128, 4)])
+def test_cuda_packed_attention_designs_agree(n, s, c, heads, dtype):
+    """Where both K2 designs take the width (d % 8 == 0 up to 128), each is
+    held to the plain version, whichever the library picks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((n, s, c), generator=gen, device="cuda").to(dtype) for _ in range(3))
+    with _full_fp32():
+        ref = tfa.packed_attention_plain(q, k, v, heads)
+    tol = FP32_TOL if dtype == torch.float32 else TOL
+    for path in tfa.PACKED_PATHS:
+        out = tfa._packed_call(q, k, v, heads, path=path)
+        torch.cuda.synchronize()
+        assert max_row_rel_err(out, ref, c // heads) <= tol, path
 
 
 @pytest.mark.cuda
@@ -265,9 +312,12 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         tfa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         tfa.flash_attention_onepass(q, q, q)
-    p = torch.zeros(4, 16, 72, device="cuda", dtype=torch.bfloat16)  # d = 36
-    with pytest.raises(ValueError, match="unsupported"):
+    p = torch.zeros(4, 16, 72, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         tfa.packed_attention(p, p, p, 2)
+    p = torch.zeros(4, 16, 72, device="cuda", dtype=torch.bfloat16)  # d = 36
+    with pytest.raises(RuntimeError, match="invalid argument"):  # the head tile's widths only
+        tfa._packed_call(p, p, p, 2, path="head_tile")
     p = torch.zeros(4, 40, 128, device="cuda", dtype=torch.bfloat16)  # S = 40
     with pytest.raises(ValueError, match="unsupported"):
         tfa.packed_attention(p, p, p, 2)

@@ -143,8 +143,8 @@ def test_plain_attention_matches_xla_attention(sq, sk, with_bias):
 
 def test_dispatch_routes_like_the_reference():
     """K1 at the spatial self-attention shapes, the plain path for S=40,
-    kv=77 and a bias; K2 for the temporal widths and head widths that are
-    multiples of 8 up to 128, not for kv != S."""
+    kv=77 and a bias; K2 for the temporal widths at every head width, not
+    for kv != S."""
     for s in (2560, 640, 160):
         assert tatt.flash_shape_ok(s, s, 64, None)
     assert not tatt.flash_shape_ok(40, 40, 64, None)       # mid block
@@ -160,8 +160,8 @@ def test_dispatch_routes_like_the_reference():
     assert not tatt.packed_shape_ok(40, 40, None, 1280, 20)
     assert not tatt.packed_shape_ok(16, 16, 0.0, 320, 5)
     assert not tatt.packed_shape_ok(16, 16, None, 2048, 32)
-    assert not tatt.packed_shape_ok(16, 16, None, 72, 2)    # d = 36: plain path
-    assert not tatt.packed_shape_ok(16, 16, None, 272, 2)   # d = 136: plain path
+    assert tatt.packed_shape_ok(16, 16, None, 72, 2)        # d = 36: K2's span design
+    assert tatt.packed_shape_ok(16, 16, None, 272, 2)       # d = 136: K2's span design
     q = torch.zeros(4, 16, 320)
     assert not tatt.use_packed_tiny(q, 16, 16, None, 320, 5)  # CPU tensors: plain
 
@@ -209,7 +209,7 @@ def test_every_included_header_is_in_the_build_digest():
     library loaded after an edit."""
     import re
 
-    seen, todo = set(), list(tfa._SOURCES.values())
+    seen, todo = set(), [src for srcs in tfa._SOURCES.values() for src in srcs]
     while todo:
         name = todo.pop()
         for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
