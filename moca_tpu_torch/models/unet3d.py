@@ -41,6 +41,7 @@ from moca_tpu_torch.ops.attention import (
 )
 from moca_tpu_torch.ops.norms import GroupNorm32, LayerNorm32
 from moca_tpu_torch.schedule import timestep_embedding
+from moca_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,14 +207,15 @@ class ResBlock(nn.Module):
         self.temporal_conv = temporal_conv
 
     def forward(self, x, emb, batch_size: int):
-        h = self.in_layers(x)
-        h = h + self.emb_layers(emb)[:, None, None, :].to(h.dtype)
-        h = self.skip_connection(x) + self.out_layers(h)
-        if self.temporal_conv:
-            bt, hh, ww, c = h.shape
-            v = self.temopral_conv(h.reshape(batch_size, bt // batch_size, hh, ww, c))
-            h = v.reshape(bt, hh, ww, c)
-        return h
+        with annotate("unet.res"):
+            h = self.in_layers(x)
+            h = h + self.emb_layers(emb)[:, None, None, :].to(h.dtype)
+            h = self.skip_connection(x) + self.out_layers(h)
+            if self.temporal_conv:
+                bt, hh, ww, c = h.shape
+                v = self.temopral_conv(h.reshape(batch_size, bt // batch_size, hh, ww, c))
+                h = v.reshape(bt, hh, ww, c)
+            return h
 
 
 class RelativePosition(nn.Module):
@@ -383,11 +385,12 @@ class SpatialTransformer(nn.Module):
         self.proj_out = nn.Linear(inner, ch)
 
     def forward(self, x, context=None):
-        bt, hh, ww, c = x.shape
-        h = self.proj_in(self.norm(x).reshape(bt, hh * ww, c))
-        for block in self.transformer_blocks:
-            h = block(h, context=context)
-        return self.proj_out(h).reshape(bt, hh, ww, c) + x
+        with annotate("unet.spatial"):
+            bt, hh, ww, c = x.shape
+            h = self.proj_in(self.norm(x).reshape(bt, hh * ww, c))
+            for block in self.transformer_blocks:
+                h = block(h, context=context)
+            return self.proj_out(h).reshape(bt, hh, ww, c) + x
 
 
 class TemporalTransformer(nn.Module):
@@ -413,18 +416,19 @@ class TemporalTransformer(nn.Module):
 
     def forward(self, x, context=None):
         """context: [B*T, L, D] per-frame context (ignored with only_self_att)."""
-        b, t, hh, ww, c = x.shape
-        h = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * hh * ww, t, c)
-        h = self.proj_in(h)
-        ctx = None
-        if not self.only_self_att and context is not None:
-            # the first frame's context, repeated for each pixel (attention.py:355-363)
-            ctx = context.reshape((b, t) + tuple(context.shape[1:]))[:, 0]
-            ctx = ctx.repeat_interleave(hh * ww, dim=0)
-        for block in self.transformer_blocks:
-            h = block(h, context=ctx)
-        h = self.proj_out(h).reshape(b, hh, ww, t, c).permute(0, 3, 1, 2, 4)
-        return h + x
+        with annotate("unet.temporal"):
+            b, t, hh, ww, c = x.shape
+            h = self.norm(x).permute(0, 2, 3, 1, 4).reshape(b * hh * ww, t, c)
+            h = self.proj_in(h)
+            ctx = None
+            if not self.only_self_att and context is not None:
+                # the first frame's context, repeated for each pixel (attention.py:355-363)
+                ctx = context.reshape((b, t) + tuple(context.shape[1:]))[:, 0]
+                ctx = ctx.repeat_interleave(hh * ww, dim=0)
+            for block in self.transformer_blocks:
+                h = block(h, context=ctx)
+            h = self.proj_out(h).reshape(b, hh, ww, t, c).permute(0, 3, 1, 2, 4)
+            return h + x
 
 
 class Downsample(nn.Module):
@@ -456,7 +460,11 @@ class Upsample(nn.Module):
 
 class UNet3D(nn.Module):
     """Epsilon predictor: forward(x [B,T,H,W,Cin], timesteps [B,T],
-    context [B,L,D], fps) -> [B,T,H,W,Cout] in x's type."""
+    context [B,L,D], fps) -> [B,T,H,W,Cout] in x's type.
+
+    Trace ranges (utils/profiling.py `annotate`): `unet.res`, `unet.spatial`
+    and `unet.temporal` around each block, and `unet.norm` around each of
+    its own norms, which it names here; the other networks' norms open none."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -477,6 +485,9 @@ class UNet3D(nn.Module):
             nn.ModuleList(self._layer(s) for s in block) for block in out_plan)
         self.out = _norm_act_conv(mc, Conv2d(mc, cfg.out_channels, 3, padding=1),
                                   dropout_slot=False)
+        for m in self.modules():
+            if isinstance(m, (GroupNorm32, LayerNorm32)):
+                m.span = "unet.norm"
 
     def _layer(self, spec) -> nn.Module:
         cfg, kind = self.cfg, spec["kind"]

@@ -35,7 +35,8 @@ Port of moca_tpu/pipelines/moca_video.py:
     open-vocab provider and broadcasts its masks, and feeds `viz`;
   * the stages' seconds in a `StepTimer` (utils/profiling.py), read as
     `timings`, with one `{"profile": ...}` line at the end when
-    MOCA_TPU_PROFILE=1 (:360-507).
+    MOCA_TPU_PROFILE=1 (:360-507); the trace range `sampler.shift` around
+    each iteration's anchor draw and queue shift.
 
 Noise: every draw goes through `normal(tag, shape)` (sampling/ddim.py):
 ("base", ...) for the base sample, ("queue",) for the queue and
@@ -85,7 +86,7 @@ from moca_tpu_torch.sampling.fifo import (
 )
 from moca_tpu_torch.sampling.moca import MoCAConfig
 from moca_tpu_torch.schedule import make_schedule
-from moca_tpu_torch.utils.profiling import StepTimer
+from moca_tpu_torch.utils.profiling import StepTimer, annotate
 
 SNAPSHOT = "fifo_state.npz"
 
@@ -150,12 +151,13 @@ class MoCAVideoPipeline:
             cond_image=cond, masks=mask_queue, masks_are_davis=masks_are_davis, gamma=gamma,
             with_pred_x0=want_pred)
         new_latents, head = result[:2]
-        tail_anchor = None
-        if anchor is not None:
-            mean, std = anchor
-            tail_anchor = mean + std * normal(("fifo", i, "anchor"), tuple(mean.shape))
-        shifted = shift_queue(new_latents, normal, ("fifo", i, "shift"), anchor=tail_anchor,
-                              tail_mode=self.tail_mode)
+        with annotate("sampler.shift"):
+            tail_anchor = None
+            if anchor is not None:
+                mean, std = anchor
+                tail_anchor = mean + std * normal(("fifo", i, "anchor"), tuple(mean.shape))
+            shifted = shift_queue(new_latents, normal, ("fifo", i, "shift"),
+                                  anchor=tail_anchor, tail_mode=self.tail_mode)
         pred_low = result[2][:, : self._num_low_t_slots()] if want_pred else None
         return shifted, head, pred_low
 

@@ -12,6 +12,10 @@ indices (e.g. ("fifo", i, "win", r, "frame", j)). `GeneratorNormal` backs it
 with a seeded torch.Generator; a test can pass a callable that replays the
 JAX package's key layout (docs/RNG.md) so that both packages consume the
 same numbers.
+
+Trace ranges (utils/profiling.py `annotate`): `sampler.ddim` around each
+DDIM step, `sampler.cfg` around each guided noise prediction, the U-Net
+call inside it.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from moca_tpu_torch.schedule import DiffusionSchedule
+from moca_tpu_torch.utils.profiling import annotate
 
 Normal = Callable[[tuple, tuple], torch.Tensor]
 
@@ -99,18 +104,19 @@ def make_cfg_eps_fn(unet_apply: Callable, context: torch.Tensor,
         return eps + temporal_guidance_scale * (e_t - e_i)
 
     def eps_fn(x, t_frames):
-        if uncond_context is None or guidance_scale == 1.0:
-            eps = unet_apply(x, t_frames, expand_context(context, x.shape[0]), fps)
-            return with_temporal_term(eps, x, t_frames)
-        b = x.shape[0]
-        x2 = torch.stack([x, x], dim=1).reshape((2 * b,) + tuple(x.shape[1:]))
-        t2 = torch.stack([t_frames, t_frames], dim=1).reshape(
-            (2 * b,) + tuple(t_frames.shape[1:]))
-        ctx2 = torch.stack([expand_context(context, b),
-                            expand_context(uncond_context, b)], dim=1)
-        ctx2 = ctx2.reshape((2 * b,) + tuple(context.shape[1:]))
-        eps = unet_apply(x2, t2, ctx2, fps).reshape((b, 2) + tuple(x.shape[1:]))
-        return with_temporal_term(combine(eps[:, 0], eps[:, 1]), x, t_frames)
+        with annotate("sampler.cfg"):
+            if uncond_context is None or guidance_scale == 1.0:
+                eps = unet_apply(x, t_frames, expand_context(context, x.shape[0]), fps)
+                return with_temporal_term(eps, x, t_frames)
+            b = x.shape[0]
+            x2 = torch.stack([x, x], dim=1).reshape((2 * b,) + tuple(x.shape[1:]))
+            t2 = torch.stack([t_frames, t_frames], dim=1).reshape(
+                (2 * b,) + tuple(t_frames.shape[1:]))
+            ctx2 = torch.stack([expand_context(context, b),
+                                expand_context(uncond_context, b)], dim=1)
+            ctx2 = ctx2.reshape((2 * b,) + tuple(context.shape[1:]))
+            eps = unet_apply(x2, t2, ctx2, fps).reshape((b, 2) + tuple(x.shape[1:]))
+            return with_temporal_term(combine(eps[:, 0], eps[:, 1]), x, t_frames)
 
     return eps_fn
 
@@ -147,12 +153,13 @@ def _ddim_steps(eps_fn: Callable, sch: DiffusionSchedule, x: torch.Tensor, steps
     tag+("step", i), shared across the batch."""
     b, t = x.shape[0], x.shape[1]
     for i in range(steps):
-        index = steps - 1 - i
-        t_frames = torch.full((b, t), int(sch.ddim_timesteps_np[index]),
-                              dtype=torch.long, device=x.device)
-        eps = eps_fn(x, t_frames)
-        noise = temperature * shared_normal(normal, tag + ("step", i), x.shape)
-        x, _ = ddim_step_math(sch, x, eps, index, noise)
+        with annotate("sampler.ddim"):
+            index = steps - 1 - i
+            t_frames = torch.full((b, t), int(sch.ddim_timesteps_np[index]),
+                                  dtype=torch.long, device=x.device)
+            eps = eps_fn(x, t_frames)
+            noise = temperature * shared_normal(normal, tag + ("step", i), x.shape)
+            x, _ = ddim_step_math(sch, x, eps, index, noise)
     return x
 
 

@@ -7,6 +7,9 @@ reference's reversed-rank sweep with immediate write-back, since window r
 only writes slots above every lower-rank read range (see the reference
 module). The per-window MoCA steps and the write-back follow; the FreeInit
 tail shift refills the queue. Static index maps live in numpy in `FIFOPlan`.
+Trace ranges (utils/profiling.py `annotate`) in `fifo_step`:
+`sampler.windows` (the window gather and the timesteps' upload) and
+`sampler.moca` (every window's MoCA step and the write-back).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from moca_tpu_torch import freeinit
 from moca_tpu_torch.sampling.ddim import Normal, shared_normal, stochastic_encode
 from moca_tpu_torch.sampling.moca import MoCAConfig, moca_window_step
 from moca_tpu_torch.schedule import DiffusionSchedule
+from moca_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,27 +181,29 @@ def fifo_step(eps_window_fn: Callable, sch: DiffusionSchedule, plan: FIFOPlan,
     head_latent), and with `with_pred_x0` also the queue-aligned
     pre-injection pred_x0 (scatter_pred_x0) for a host-side mask provider."""
     R, B, f = plan.num_windows, latents.shape[0], plan.f
-    windows = _gather_windows(latents, plan)               # [R, B, f, h, w, C]
-    w_ts, w_idx = plan.window_timesteps(), plan.window_indices()
-    flat_x = windows.reshape((R * B, f) + tuple(windows.shape[3:]))
-    flat_t = torch.as_tensor(np.repeat(w_ts, B, axis=0), device=latents.device)
+    with annotate("sampler.windows"):
+        windows = _gather_windows(latents, plan)               # [R, B, f, h, w, C]
+        w_ts, w_idx = plan.window_timesteps(), plan.window_indices()
+        flat_x = windows.reshape((R * B, f) + tuple(windows.shape[3:]))
+        flat_t = torch.as_tensor(np.repeat(w_ts, B, axis=0), device=latents.device)
     eps = eps_window_fn(flat_x, flat_t).reshape(windows.shape)
-    w_masks = None if masks is None else _gather_windows(masks, plan)
 
-    x_prev, pred_pre = [], []
-    for r in range(R):
-        out = moca_window_step(
-            sch, moca_cfg, windows[r], eps[r], w_idx[r], w_ts[r], normal, tag + ("win", r),
-            cond_image=cond_image, masks=None if w_masks is None else w_masks[r],
-            masks_are_davis=masks_are_davis, gamma=gamma, with_preinject=with_pred_x0)
-        x_prev.append(out[0])
+    with annotate("sampler.moca"):
+        w_masks = None if masks is None else _gather_windows(masks, plan)
+        x_prev, pred_pre = [], []
+        for r in range(R):
+            out = moca_window_step(
+                sch, moca_cfg, windows[r], eps[r], w_idx[r], w_ts[r], normal, tag + ("win", r),
+                cond_image=cond_image, masks=None if w_masks is None else w_masks[r],
+                masks_are_davis=masks_are_davis, gamma=gamma, with_preinject=with_pred_x0)
+            x_prev.append(out[0])
+            if with_pred_x0:
+                pred_pre.append(out[2])
+        new_latents = _scatter_windows(latents, x_prev, plan)
+        head = new_latents[:, plan.head_slot]
         if with_pred_x0:
-            pred_pre.append(out[2])
-    new_latents = _scatter_windows(latents, x_prev, plan)
-    head = new_latents[:, plan.head_slot]
-    if with_pred_x0:
-        return new_latents, head, scatter_pred_x0(pred_pre, plan)
-    return new_latents, head
+            return new_latents, head, scatter_pred_x0(pred_pre, plan)
+        return new_latents, head
 
 
 def scatter_pred_x0(pred, plan: FIFOPlan) -> torch.Tensor:

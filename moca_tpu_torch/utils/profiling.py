@@ -3,11 +3,14 @@
 Port of moca_tpu/utils/profiling.py:
   * `trace(log_dir)`: torch.profiler over the CPU and the GPU, exported as a
     Chrome trace into `log_dir`;
-  * `annotate(name)`: a named range in that trace;
+  * `annotate(name)`: a named range in the trace of any torch.profiler that
+    is recording, `trace()` included, and one shared no-op context (a single
+    C query) when none is: the port's only span facility;
   * `StepTimer`: seconds per named stage and one `{"profile": ...}` JSON line
     when MOCA_TPU_PROFILE=1. The pipelines keep their stage seconds in one
-    (`record`, which waits for the device's queued work first), so
-    `pipe.timings` and the profile line read the same records.
+    (`record`, which waits for the device's queued work first, inside a
+    `timer.sync` range), so `pipe.timings` and the profile line read the
+    same records.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Optional
 
 import torch
@@ -36,8 +39,19 @@ def trace(log_dir: str = "build/moca_tpu_trace"):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+_NO_SPAN = nullcontext()
+
+
 def annotate(name: str):
-    """A named range in the trace, around host code that launches device work."""
+    """A named range in the trace, around host code that launches device work.
+
+    `torch._C._autograd._profiler_enabled()` is the test, not the Python flag
+    `torch.autograd.profiler._is_profiler_enabled`: a profiler started with
+    `torch.autograd._enable_profiler` leaves the flag False. With no
+    profiler recording, a span costs that one C query: a `record_function`
+    would cost its set-up and an operator call even then."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
@@ -67,7 +81,8 @@ class StepTimer:
         included unless `sync` is off, whether or not the timer is enabled;
         returns the time now."""
         if sync and device is not None and device.type == "cuda":
-            torch.cuda.synchronize(device)
+            with annotate("timer.sync"):
+                torch.cuda.synchronize(device)
         now = time.perf_counter()
         self.add(name, now - t0)
         return now
