@@ -149,6 +149,17 @@ shape a kernel received must have been held to its plain version in phase 2.
 Every phase prints its seconds. Prints a JSON line of kernel measurements,
 then as the last line {"ok": true, "device": {...}}.
 
+Phase 2b holds the norms' kernels (GroupNorm(+SiLU) and LayerNorm,
+csrc/norms.cu) to their plain versions at every shape one forward of the
+shipped U-Net gives them at the stream's 16 rows and the clip's 2, and times
+each beside its bytes bound, the plain version and F.group_norm /
+F.layer_norm (`library_ms`, a yardstick only); `[norm summary]` sums them
+over one U-Net call, and `[norm host]` gives each wrapper's host cost a call
+beside its plain chain's and a PyTorch `x + 1`. The runs of phases 3-14 read
+the norms' launch tallies beside K1-K4's, and phase 15 holds every norm shape
+they gave that phase 2b did not; the norms' rows join the JSON line and the
+launch-weighted summary.
+
 Usage: python3 chip_smoke.py [new_video_length (default 4)]
 """
 
@@ -245,6 +256,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def tallied_kernels():
+    """Every wrapper that keeps a `launches` tally: K1-K4, then the norms."""
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.ops import norms as tn
+
+    return fa.KERNELS + tn.KERNELS
+
+
+def reset_launch_counts():
+    """Empty the tallies of `tallied_kernels()`."""
+    from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.ops import norms as tn
+
+    fa.reset_launch_counts()
+    tn.reset_launch_counts()
 
 
 @contextlib.contextmanager
@@ -388,7 +416,7 @@ def phase_build():
     t0 = time.perf_counter()
     fa.build_kernels()
     for name in fa._SOURCES:
-        fa._entry(name)
+        fa.load_library(name)
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc: {json.dumps({k: round(v['seconds'], 1) for k, v in fa.build_log.items()})})",
           flush=True)
@@ -733,6 +761,225 @@ def check_fused(n, s, c, gen, rows, reps=10, dtype=None):
                      path=path, cluster=cl, **extra))
 
 
+# The norms (ops/norms.py, csrc/norms.cu) against their plain versions: the
+# largest |kernel - plain| over the output relative to max |plain|; both round
+# once to the input's type (bf16: at most one unit, 2^-8, apart). The limits
+# of tests/test_torch_cuda.py's NORM_TOL, by the launch tally's type tag.
+NORM_TOL = {"bf16": 1e-2, "fp16": 2e-3, "fp32": 1e-4}
+# The (eps, act) pairs the port's networks give the norms: GroupNorm+SiLU at
+# 1e-5 (the U-Net's ResBlocks), GroupNorm at 1e-6 (the U-Net's transformers,
+# the VAE); LayerNorm at 1e-5.
+NORM_SETTINGS = {"group_norm": ((1e-5, "silu"), (1e-6, None)), "layer_norm": ((1e-5, None),)}
+NORM_REPLACES = {"group_norm": "none; stands beside moca_tpu/ops/norms.py (GroupNorm32)",
+                 "layer_norm": "none; stands beside moca_tpu/models/unet3d.py (_LayerNorm32)"}
+
+
+def norm_calls(unet, rows: int, lat=(40, 64), f: int = 16, ctx: int = 154):
+    """One forward of `unet` at `rows` rows of f frames on an h x w latent:
+    ({(kind, tally key): {(eps, act), ...}}, {kind: {tally key: calls}} as
+    forward hooks on every GroupNorm32 and LayerNorm32 saw them,
+    {kind: {tally key: launches}} as the wrappers' tallies read them, the
+    calls whose input the wrapper had to copy first)."""
+    import collections
+
+    import torch
+    from moca_tpu_torch.ops import norms as tn
+
+    settings = collections.defaultdict(set)
+    calls = {fn.__name__: collections.Counter() for fn in tn.KERNELS}
+    copied = [0]
+
+    def hook(mod, args):
+        x = args[0]
+        copied[0] += not x.is_contiguous()
+        tag = tn._DTYPE_TAGS[x.dtype]
+        if isinstance(mod, tn.GroupNorm32):
+            n, c = x.shape[0], x.shape[-1]
+            kind, key, act = "group_norm", (n, x.numel() // (n * c), c, mod.groups) + tag, mod.act
+        else:
+            kind, key, act = "layer_norm", (x.numel() // x.shape[-1], x.shape[-1]) + tag, None
+        settings[kind, key].add((mod.eps, act))
+        calls[kind][key] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in unet.modules()
+               if isinstance(m, (tn.GroupNorm32, tn.LayerNorm32))]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = _randn((rows, f) + tuple(lat) + (4,), gen)
+    reset_launch_counts()
+    with torch.inference_mode():
+        unet(x, torch.full((rows, f), 500, device="cuda", dtype=torch.long),
+             _randn((rows, ctx, 1024), gen), fps=16)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    launched = {fn.__name__: dict(fn.launches) for fn in tn.KERNELS}
+    return settings, {k: dict(v) for k, v in calls.items()}, launched, copied[0]
+
+
+def check_norm(kind, key, settings, gen, rows, reps=10):
+    """The norm `kind` at its launch tally's `key` ((N, M, C, groups) or
+    (R, C), with the type's tag) against its plain version at every (eps,
+    act) of `settings`, with a planted fault (weight and bias swapped); timed
+    at the first setting beside the plain version and one PyTorch call for
+    the same work (F.group_norm on the channels-last view, then F.silu;
+    F.layer_norm), with its bytes bound (one read for the statistics, one
+    read and one write to apply: 6 bytes an element in bf16; 4 for
+    LayerNorm). Appends a row of the kernel measurements; returns (ms,
+    bound_ms, plain_ms, library_ms)."""
+    import torch
+    import torch.nn.functional as F
+    from moca_tpu_torch.ops import norms as tn
+
+    tag = key[-1] if isinstance(key[-1], str) else "bf16"
+    dims = key[:-1] if isinstance(key[-1], str) else key
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}[tag]
+    tol = NORM_TOL[tag]
+    shape = dims[:3] if kind == "group_norm" else dims
+    c = shape[-1]
+    x = (_randn(shape, gen, torch.float32) * 2 + 0.5).to(dtype)
+    w = (1 + 0.3 * _randn((c,), gen, torch.float32)).to(dtype)
+    b = (0.5 * _randn((c,), gen, torch.float32)).to(dtype)
+    if kind == "group_norm":
+        groups = dims[3]
+        run = lambda w_, b_, eps, act: tn.group_norm(x, w_, b_, groups, eps, act)
+        plain = lambda eps, act: tn.group_norm_plain(x, w, b, groups, eps, act)
+        xl = x.reshape(shape[0], shape[1], 1, c).permute(0, 3, 1, 2)  # NCHW, channels-last
+        lib = lambda eps, act: (F.silu if act else (lambda t: t))(F.group_norm(xl, groups, w, b,
+                                                                               eps))
+        passes, label = 3, f"N={shape[0]} M={shape[1]} C={c} groups={groups}"
+    else:
+        run = lambda w_, b_, eps, act: tn.layer_norm(x, w_, b_, eps)
+        plain = lambda eps, act: tn.layer_norm_plain(x, w, b, eps)
+        lib = lambda eps, act: F.layer_norm(x, (c,), w, b, eps)
+        passes, label = 2, f"R={shape[0]} C={c}"
+    rel = lambda o, ref: ((o.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+    err = fault = 0.0
+    for eps, act in settings:
+        ref = plain(eps, act)
+        out = run(w, b, eps, act)
+        if not torch.isfinite(out.float()).all():
+            fail(f"{kind} {label} {tag} eps={eps} act={act}: output not finite")
+        err = max(err, rel(out, ref))
+        fault = max(fault, rel(run(b, w, eps, act), ref))
+        del ref, out
+    if not err <= tol < fault:
+        fail(f"{kind} {label} {tag}: err {err} (tol {tol}), planted fault {fault}")
+    eps, act = settings[0]
+    ms = cuda_ms(lambda: run(w, b, eps, act), reps)
+    plain_ms = cuda_ms(lambda: plain(eps, act), 3, warmup=1)
+    lib_ms = cuda_ms(lambda: lib(eps, act), reps)
+    bound = passes * x.numel() * x.element_size() / H100_BYTES_PER_S * 1e3
+    print(f"[norm {kind} {tag} {label}] err {err:.3e} (tol {tol}, planted fault {fault:.3e}; "
+          f"settings {list(settings)}) kernel {ms:.4f} ms ({100 * bound / ms:.1f} % of bound) "
+          f"plain {plain_ms:.4f} ms library {lib_ms:.4f} ms bound {bound:.4f} ms (bytes)",
+          flush=True)
+    rows.append(dict(name=f"{kind}{'' if tag == 'bf16' else ' ' + tag} {label}", route="cuda",
+                     source="moca_tpu_torch/csrc/norms.cu", replaces=NORM_REPLACES[kind],
+                     shape=key, max_rel_err=err, fault_rel_err=fault, settings=list(settings),
+                     ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                     library_ms=lib_ms))
+    return ms, bound, plain_ms, lib_ms
+
+
+def norm_host_us(rounds=3, reps=2000):
+    """Host microseconds a call of each norm wrapper and its plain chain,
+    beside a PyTorch `x + 1`, all on one small bf16 input ([2, 64, 320],
+    GroupNorm+SiLU at 32 groups; its [128, 320] rows for LayerNorm) so that
+    the card waits for the host: the wall time of `reps` calls issued back to
+    back, one sync after them; the median of `rounds` rounds in turn."""
+    import statistics
+
+    import torch
+    from moca_tpu_torch.ops import norms as tn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x, w, b = _randn((2, 64, 320), gen), _randn((320,), gen), _randn((320,), gen)
+    r = x.reshape(128, 320)
+    fns = {"group_norm": lambda: tn.group_norm(x, w, b, 32, 1e-6, "silu"),
+           "group_norm_plain": lambda: tn.group_norm_plain(x, w, b, 32, 1e-6, "silu"),
+           "layer_norm": lambda: tn.layer_norm(r, w, b, 1e-5),
+           "layer_norm_plain": lambda: tn.layer_norm_plain(r, w, b, 1e-5),
+           "add": lambda: x + 1}
+    times = {name: [] for name in fns}
+    with torch.inference_mode():
+        for _ in range(rounds):
+            for name, fn in fns.items():
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) / reps * 1e6)
+    us = {name: statistics.median(t) for name, t in times.items()}
+    print(f"[norm host] us a call, median of {rounds} rounds of {reps} "
+          f"{json.dumps({k: round(v, 2) for k, v in us.items()})}; against x + 1: "
+          f"{json.dumps({k: round(v / us['add'], 2) for k, v in us.items() if k != 'add'})}",
+          flush=True)
+    tn.reset_launch_counts()
+    return us
+
+
+def phase_norms(rows):
+    """The shipped U-Net (random bf16 weights) at the stream's 16 rows and the
+    clip's 2 rows (16 frames, 40 x 64 latent): each norm shape of one forward
+    held to its plain version at the settings its modules use and timed
+    (`check_norm`, a row each); the sums over one U-Net call by kernel, each
+    shape weighted by its launches, printed as `[norm summary]` (ms,
+    bound_ms, plain_ms, library_ms), with the calls whose input was not
+    contiguous; then the wrappers' host cost (`norm_host_us`)."""
+    import torch
+    from moca_tpu_torch.models.unet3d import UNet3D, UNetConfig
+
+    with torch.device("cuda"):
+        unet = UNet3D(UNetConfig()).to(torch.bfloat16).eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    summary = {}
+    for n_rows in (16, 2):
+        settings, calls, launched, copied = norm_calls(unet, n_rows)
+        if launched != calls:
+            fail(f"norms at {n_rows} rows: launches {launched}, module calls {calls}")
+        by_kind = summary[f"rows{n_rows}"] = {"non_contiguous_inputs": copied}
+        for (kind, key), seen in sorted(settings.items(), key=str):
+            times = check_norm(kind, key, sorted(seen, key=lambda s: s[1] is None), gen, rows)
+            total = by_kind.setdefault(kind, dict.fromkeys(
+                ("calls", "ms", "bound_ms", "plain_ms", "library_ms"), 0.0))
+            total["calls"] += calls[kind][key]
+            for field, t in zip(("ms", "bound_ms", "plain_ms", "library_ms"), times):
+                total[field] += calls[kind][key] * t
+        for kind in launched:
+            by_kind[kind]["bound_share"] = by_kind[kind]["bound_ms"] / by_kind[kind]["ms"]
+    del unet
+    torch.cuda.empty_cache()
+    rounded = lambda t: {f: round(v, 4) for f, v in t.items()} if isinstance(t, dict) else t
+    print(f"[norm summary, a U-Net call] "
+          f"{json.dumps({k: {kind: rounded(t) for kind, t in by.items()} for k, by in summary.items()})}",
+          flush=True)
+    norm_host_us()
+    return summary
+
+
+def phase_norm_shapes(shapes, rows):
+    """Every norm shape the runs gave (by their launch tallies) that phase 2b
+    did not hold: each held to its plain version and timed at NORM_SETTINGS
+    (`check_norm`, a row each), so that every shape a norm kernel received
+    on every path has been held."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    held = {(r["name"].split()[0], r["shape"]) for r in rows}
+    todo = sorted({(kind, key) for by_kernel in shapes.values()
+                   for kind, by_shape in by_kernel.items() if kind in NORM_SETTINGS
+                   for key in by_shape} - held, key=str)
+    for kind, key in todo:
+        check_norm(kind, key, NORM_SETTINGS[kind], gen, rows, reps=5)
+        torch.cuda.empty_cache()
+    print(f"[norms, the runs' other shapes] {len(todo)} shapes held to their plain versions "
+          f"({sum(k == 'group_norm' for k, _ in todo)} GroupNorm, "
+          f"{sum(k == 'layer_norm' for k, _ in todo)} LayerNorm)", flush=True)
+
+
 def unet_shapes(rows: int, ctx: int, lat=(40, 64), f=16):
     """(K1 [B,Sq,Sk,H,D] shapes, K2 [N,S,C] shapes) that the shipped U-Net
     gives the kernels at a batch of `rows` x f frames on an h x w latent and
@@ -975,7 +1222,6 @@ def check_unet_reference(label, ctx_len, switched, expect, dtype=None, **cfg_kw)
     launched (its fp32 path, in fp32). Returns the GPU forward's launches,
     {kernel: {shape: n}}."""
     import torch
-    from moca_tpu_torch.ops import flash_attention as fa
 
     dtype = dtype or torch.bfloat16
     fp32 = dtype == torch.float32
@@ -984,13 +1230,13 @@ def check_unet_reference(label, ctx_len, switched, expect, dtype=None, **cfg_kw)
     with torch.inference_mode():
         ref = ref_model(x, ts, ctx, fps=10)
         gpu_model = ref_model.to("cuda", dtype)
-        fa.reset_launch_counts()
+        reset_launch_counts()
         with switches_on() if switched else contextlib.nullcontext():
             out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
     if not math.isfinite(rel) or rel > tol:
         fail(f"U-Net {label} GPU vs CPU reference: relative max err {rel} > {tol}")
-    launched = {fn.__name__: dict(fn.launches) for fn in fa.KERNELS}
+    launched = {fn.__name__: dict(fn.launches) for fn in tallied_kernels()}
     missing = [name for name in expect
                if not (fp32_launches(launched[name]) if fp32 else launched[name])]
     if missing:
@@ -1060,7 +1306,6 @@ def phase_main_path(new_video_length: int, num_partitions: int):
     model, the as-shipped run's frames)."""
     import torch
     from moca_tpu_torch.models.tokenizer import HashTokenizer
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
 
     t0 = time.perf_counter()
@@ -1077,7 +1322,7 @@ def phase_main_path(new_video_length: int, num_partitions: int):
                                  new_video_length=new_video_length, guidance_scale=12.0)
         torch.cuda.reset_peak_memory_stats()
         with switches_on() if run == "switched" else contextlib.nullcontext():
-            fa.reset_launch_counts()
+            reset_launch_counts()
             t0 = time.perf_counter()
             frames = pipe(**main_path_call())
             total = time.perf_counter() - t0
@@ -1106,9 +1351,7 @@ def _check_frames(label, frames, iters):
 def _launches(label, expect):
     """{kernel: {shape: n}} since the last reset; fails unless every kernel
     in `expect` launched."""
-    from moca_tpu_torch.ops import flash_attention as fa
-
-    launched = {fn.__name__: dict(fn.launches) for fn in fa.KERNELS}
+    launched = {fn.__name__: dict(fn.launches) for fn in tallied_kernels()}
     counts = {name: sum(by_shape.values()) for name, by_shape in launched.items()}
     for name in expect:
         if counts[name] <= 0:
@@ -1197,7 +1440,6 @@ def phase_davis(model, new_video_length: int, num_partitions: int):
 
     import torch
     from moca_tpu_torch.models.tokenizer import HashTokenizer
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
     from moca_tpu_torch.sampling.ddim import GeneratorNormal
 
@@ -1236,7 +1478,7 @@ def phase_davis(model, new_video_length: int, num_partitions: int):
                              num_partitions=num_partitions,
                              new_video_length=new_video_length, guidance_scale=12.0)
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     video = pipe("object bear cat.", normal=normal, cond_image=cond, gamma=0.5, height=320,
                  width=512, clean_latents=clean, masks=masks, davis_frames=frames)
@@ -1288,7 +1530,6 @@ def phase_open_vocab(model, new_video_length: int, num_partitions: int):
     import torch
     from moca_tpu_torch.io.segmentation import CallbackMaskProvider
     from moca_tpu_torch.models.tokenizer import HashTokenizer
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
 
     pipe = MoCAVideoPipeline(model, HashTokenizer(), video_length=16,
@@ -1317,7 +1558,7 @@ def phase_open_vocab(model, new_video_length: int, num_partitions: int):
     _check_frames("open-vocab baseline", pipe("a cat surfing", **call), iters)
     baseline = (pipe.timings["fifo_iteration"] + pipe.timings["decode"]) / iters
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     with profile_env(), contextlib.redirect_stdout(out):
@@ -1436,14 +1677,13 @@ def phase_t2v_batch(model):
     Returns {run: {kernel: {shape: launches}}}."""
     import torch
     from moca_tpu_torch.models.tokenizer import HashTokenizer
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.t2v import T2VPipeline
 
     pipe = T2VPipeline.build(model, HashTokenizer(), num_steps=50, eta=1.0,
                              guidance_scale=12.0, fps=28)
     root = os.path.join("build", "smoke_t2v")
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     written, seconds = run_batch_cli(pipe, ["--bs", "4"], T2V_PROMPTS, os.path.join(root, "bs4"))
     launched = {"t2v_bs4": _launches("t2v bs4", ("flash_attention", "packed_attention"))}
     stages, peak = dict(pipe.timings), torch.cuda.max_memory_allocated() / 2**30
@@ -1455,7 +1695,7 @@ def phase_t2v_batch(model):
           f"{seconds:.2f} s ({seconds / 4:.2f} s a prompt); stages "
           f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; peak memory "
           f"{peak:.1f} GiB", flush=True)
-    fa.reset_launch_counts()
+    reset_launch_counts()
     single, seconds1 = run_batch_cli(pipe, ["--bs", "1"], T2V_PROMPTS[:2],
                                      os.path.join(root, "bs1"))
     launched["t2v_bs1"] = _launches("t2v bs1", ("flash_attention", "packed_attention"))
@@ -1479,7 +1719,6 @@ def phase_t2v_variants(model):
     Returns {run: {kernel: {shape: launches}}}."""
     import torch
     from moca_tpu_torch.models.tokenizer import HashTokenizer
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.t2v import T2VPipeline
 
     tok = HashTokenizer()
@@ -1491,7 +1730,7 @@ def phase_t2v_variants(model):
             ("freeinit", {}, dict(iterations=2)))
     for run, build, call in runs:
         pipe = T2VPipeline.build(model, tok, num_steps=10, guidance_scale=12.0, fps=28, **build)
-        fa.reset_launch_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         if run == "freeinit":
             video = pipe.sample_with_freeinit(prompt, seed=SEED, **size, **call)
@@ -1508,17 +1747,17 @@ def phase_t2v_variants(model):
             gen = torch.Generator(device="cuda").manual_seed(3)
             x = torch.randn((1, 16, 40, 64, 4), generator=gen, device="cuda")
             ctx = pipe.encode_prompts([prompt])
-            fa.reset_launch_counts()
+            reset_launch_counts()
             with torch.inference_mode():
                 model.apply_unet(x, torch.full((1, 16), 500, device="cuda"), ctx, 28,
                                  no_temporal_attn=True)
-            counts = {fn.__name__: sum(fn.launches.values()) for fn in fa.KERNELS}
+            counts = {fn.__name__: sum(fn.launches.values()) for fn in tallied_kernels()}
             if counts["packed_attention"] or not counts["flash_attention"]:
                 fail(f"a forward with no_temporal_attn launched {counts}")
             print(f"[t2v no_temporal_attn] one forward launches {json.dumps(counts)}", flush=True)
     pipe = T2VPipeline.build(model, tok, num_steps=0, guidance_scale=12.0, fps=28,
                              num_timesteps=DDPM_STEPS)
-    fa.reset_launch_counts()
+    reset_launch_counts()
     written, seconds = run_batch_cli(pipe, ["--ddim_steps", "0", "--height", "128",
                                             "--width", "128"], T2V_PROMPTS[:1],
                                      os.path.join("build", "smoke_t2v", "ddpm"))
@@ -1537,7 +1776,6 @@ def phase_moca_batched(model, num_partitions: int, new_video_length: int):
     import numpy as np
     import torch
     from moca_tpu_torch.models.tokenizer import HashTokenizer
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
 
     pipe = MoCAVideoPipeline(model, HashTokenizer(), video_length=16,
@@ -1548,7 +1786,7 @@ def phase_moca_batched(model, num_partitions: int, new_video_length: int):
     prompts = [T2V_PROMPTS[0], T2V_PROMPTS[2]]
     iters = new_video_length + pipe.num_inference_steps - 16
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     streams = pipe(prompts, **call)
     total = time.perf_counter() - t0
@@ -1562,7 +1800,7 @@ def phase_moca_batched(model, num_partitions: int, new_video_length: int):
           f"({steady / 2:.3f} s a frame); stages "
           f"{json.dumps({k: round(v, 3) for k, v in t.items()})}; peak memory {peak:.1f} GiB",
           flush=True)
-    fa.reset_launch_counts()
+    reset_launch_counts()
     single = pipe(prompts[0], **call)
     launched["moca_b1"] = _launches("moca B=1", ("flash_attention", "packed_attention"))
     _check_frames("MoCA B=1", single, iters)
@@ -1604,7 +1842,6 @@ def check_unet_i2v():
     moves the output past the limit, and the planted fault (the image
     tokens zeroed on the card) must fail."""
     import torch
-    from moca_tpu_torch.ops import flash_attention as fa
 
     ref_model, x, ts, ctx = reference_unet(77 + 16, use_image_attention=True)
     zeroed = ctx.clone()
@@ -1619,7 +1856,7 @@ def check_unet_i2v():
         ref = ref_model(x, ts, ctx, fps=10)
         change = rel_max(ref_model(x, ts, zeroed, fps=10), ref)
         gpu_model = ref_model.to("cuda", torch.bfloat16)
-        fa.reset_launch_counts()
+        reset_launch_counts()
         out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
         _launches("unet reference, i2v", ("flash_attention", "packed_attention"))
         fault = gpu_model(x.cuda(), ts.cuda(), zeroed.cuda(), fps=10).float().cpu()
@@ -1688,7 +1925,6 @@ def phase_i2v():
     from moca_tpu_torch.models.tokenizer import HashTokenizer
     from moca_tpu_torch.models.unet3d import UNetConfig
     from moca_tpu_torch.models.vae import VAEConfig
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.t2v import T2VPipeline
 
     check_unet_i2v()
@@ -1727,7 +1963,7 @@ def phase_i2v():
     pipe = T2VPipeline.build(model, HashTokenizer(), num_steps=10, guidance_scale=12.0, fps=28)
     names = [f"{i}.mp4" for i in range(len(paths))]
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     written, seconds = run_batch_cli(
         pipe, ["--mode", "i2v", "--cond_input", cond_dir, "--ddim_steps", "10"],
         T2V_PROMPTS[:2], os.path.join(root, "out"), names)
@@ -1917,7 +2153,6 @@ def phase_eval_sweep(model):
     import torch
     from moca_tpu_torch.cli import eval_sweep
     from moca_tpu_torch.models.tokenizer import HashTokenizer
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
 
     root = os.path.join("build", "smoke_eval")
@@ -1937,7 +2172,7 @@ def phase_eval_sweep(model):
         "--clip_vision_ckpt", paths["visual"], "--lpips_ckpt", paths["lpips"],
         "--i3d_ckpt", paths["i3d"]])
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     summary = eval_sweep.main(args, pipe=pipe)
     seconds = time.perf_counter() - t0
@@ -2032,7 +2267,6 @@ def _mesh_rank(rank, new_video_length, num_partitions):
     import torch
     import torch.distributed as dist
     from moca_tpu_torch.models.tokenizer import HashTokenizer
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.parallel import mesh as pm
     from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
 
@@ -2046,13 +2280,13 @@ def _mesh_rank(rank, new_video_length, num_partitions):
                              guidance_scale=12.0, mesh=mesh)
     call = dict(main_path_call(), latents_dir=os.path.join(MESH_DIR, "latents"))
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     dist.barrier()
     t0 = time.perf_counter()
     frames = np.stack(pipe(**call))
     total = time.perf_counter() - t0
     launched = {fn.__name__: {json.dumps(sh): n for sh, n in fn.launches.items()}
-                for fn in fa.KERNELS}
+                for fn in tallied_kernels()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     stages = dict(pipe.timings)
 
@@ -2086,7 +2320,6 @@ def _mesh_cli(port, num_partitions):
 
     import moca_tpu_torch.cli.main as cli
     from moca_tpu_torch.models.tokenizer import HashTokenizer
-    from moca_tpu_torch.ops import flash_attention as fa
     from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
 
     root = os.path.abspath(os.path.join(MESH_DIR, "cli"))
@@ -2108,14 +2341,14 @@ def _mesh_cli(port, num_partitions):
 
     cli.load_pipeline = load
     os.chdir(root)
-    fa.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     cli.main(cli.build_parser().parse_args([
         "--prompt_file", prompts, "--output_dir", "out", "--mesh", "1,1", "-n",
         str(num_partitions), "-l", "2", "--no_save_frames"]))
     seen.update(seconds=time.perf_counter() - t0, group_after=dist.is_initialized(),
                 launched={fn.__name__: {json.dumps(sh): n for sh, n in fn.launches.items()}
-                          for fn in fa.KERNELS},
+                          for fn in tallied_kernels()},
                 video=os.path.exists(os.path.join(
                     root, "out", os.path.splitext(os.path.basename(concept))[0],
                     "a cat surfing.mp4")))
@@ -2195,7 +2428,7 @@ def phase_mesh(main_frames, main_launches, new_video_length: int, num_partitions
               if k in ("flash_attention", "packed_attention")}
     for r, st in enumerate(stats):
         launched = _decoded_launches(st["launched"])
-        got = {k: v for k, v in launched.items() if v}
+        got = {k: v for k, v in launched.items() if v and k in KERNEL_NAMES}
         if got != expect:
             fail(f"phase 13 rank {r}: launches {got} != half of phase 4's rows {expect}")
         shapes[f"mesh_rank{r}"] = launched
@@ -2277,7 +2510,6 @@ def run_acceptance(ckpt, bpe):
     import numpy as np
     import torch
     from moca_tpu_torch.cli import acceptance
-    from moca_tpu_torch.ops import flash_attention as fa
 
     out, art = os.path.join(SCRIPTS_DIR, "verdict.json"), os.path.join(SCRIPTS_DIR, "accept")
     golden_npz = os.path.join(art, "golden_frames.npz")
@@ -2286,7 +2518,7 @@ def run_acceptance(ckpt, bpe):
             "--new_video_length", str(ACCEPT_NEW_FRAMES), "--skip_oracles",
             "--reference_frames", golden_npz]
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     code = acceptance.main(argv)
     total = time.perf_counter() - t0
@@ -2357,14 +2589,13 @@ def run_condition_images(ckpt, bpe):
     import numpy as np
     from moca_tpu_torch.cli import generate_condition_images
     from moca_tpu_torch.io.video import load_image_batch
-    from moca_tpu_torch.ops import flash_attention as fa
 
     csv, assets = os.path.join(SCRIPTS_DIR, "prompts.csv"), os.path.join(SCRIPTS_DIR, "assets")
     with open(csv, "w") as f:
         f.write("prompt,conditioned_object,conditioned_image_path,conditioned_prompt,gamma\n"
                 f"a red fox,cat,{assets}/cat.png,a cat,0.4\n"
                 f"a blue bird,dog,{assets}/dog.png,a dog,0.6\n")
-    fa.reset_launch_counts()
+    reset_launch_counts()
     t0 = time.perf_counter()
     written = generate_condition_images.main(
         ["--ckpt_path", ckpt, "--config", SHIPPED_YAML, "--prompts_file", csv,
@@ -2576,7 +2807,7 @@ def head160_forward(rows: int, ctx_len: int, f: int = 16):
     with torch.inference_mode():
         errors, first = [], []
         with unet_packed_swapped(packed_held_to_plain(fa.packed_attention, errors, first)):
-            fa.reset_launch_counts()
+            reset_launch_counts()
             out = unet(x, ts, ctx, fps=10)
             torch.cuda.synchronize()
         launched = _launches("phase 5 num_head_channels=160", ("packed_attention",))
@@ -2598,13 +2829,14 @@ def head160_forward(rows: int, ctx_len: int, f: int = 16):
             fail(f"phase 5 num_head_channels=160: the planted faults read {faults}, "
                  f"not all above {KERNEL_TOL}")
         del first, q, k, v, v_cut, ref
-        counts = {name: sum(by_shape.values()) for name, by_shape in launched.items()}
+        counts = {name: sum(by_shape.values()) for name, by_shape in launched.items()
+                  if name in KERNEL_NAMES}
         want = {name: 0 for name in counts} | {"packed_attention": len(temporal)}
         if counts != want:
             fail(f"phase 5 num_head_channels=160: launches {counts}, want {want} (K2 once at "
                  f"each of the {len(temporal)} temporal and init attentions, nothing else)")
         with unet_packed_swapped(fa.packed_attention_plain):
-            fa.reset_launch_counts()
+            reset_launch_counts()
             twin = unet(x, ts, ctx, fps=10)
             torch.cuda.synchronize()
             if fa.packed_attention.launches:
@@ -2645,7 +2877,6 @@ def fp32_forwards(model, rows: int, ctx_len: int, f: int = 16):
     import copy
 
     import torch
-    from moca_tpu_torch.ops import flash_attention as fa
 
     unet = copy.deepcopy(model.unet).float()
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -2659,7 +2890,7 @@ def fp32_forwards(model, rows: int, ctx_len: int, f: int = 16):
                 ("unet_fp32_full_fused", FUSED_ONLY, ("flash_attention", "fused_qkv_attention"))):
             with switches_on(env):
                 fwd_ms[run] = cuda_ms(lambda: unet(x, ts, ctx, fps=10), reps=2, warmup=1)
-                fa.reset_launch_counts()
+                reset_launch_counts()
                 out[run] = unet(x, ts, ctx, fps=10)
                 torch.cuda.synchronize()
                 launched[run] = _launches(f"phase 5 {run}", expect)
@@ -2725,6 +2956,41 @@ def profile_forward(model, x, ts, ctx, label):
     return out
 
 
+def kernel_summary(shapes, rows):
+    """Fails unless every shape each kernel received in the runs `shapes`
+    ({run: {kernel: {shape: launches}}}) has a row in `rows`; gives each row
+    its launches over the runs, and in each; prints each kernel's rows
+    weighted by their launches (`[kernel summary, launch-weighted]`)."""
+    for run, by_kernel in shapes.items():
+        for name, by_shape in by_kernel.items():
+            checked = {r["shape"] for r in rows if r["name"].split()[0] == name}
+            unchecked = set(by_shape) - checked
+            if unchecked:
+                fail(f"the path ({run}) gave {name} shapes not held to the plain version: "
+                     f"{unchecked}")
+    for r in rows:  # launches over the path's runs, and in each
+        kernel, shape = r["name"].split()[0], r.pop("shape")
+        for run in shapes:
+            r[f"launches_{run}"] = shapes[run].get(kernel, {}).get(shape, 0)
+        r["launches"] = sum(r[f"launches_{run}"] for run in shapes)
+    # each kernel's rows (its fp32 and fp16 paths apart), weighted by their
+    # launches over the runs: the totals PERF.md's kernel tables carry
+    summary = {}
+    for r in rows:
+        key = r["replaces"].split("(")[-1].rstrip(")") + "".join(
+            f" {t}" for t in ("fp32", "fp16") if f" {t} " in r["name"])
+        total = summary.setdefault(key, dict.fromkeys(
+            ("launches", "ms", "bound_ms", "plain_ms", "library_ms"), 0.0))
+        total["launches"] += r["launches"]
+        for field in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            total[field] += r["launches"] * r[field]
+    for total in summary.values():  # the share of its bound the kernel reached over the runs
+        total["bound_share"] = total["bound_ms"] / total["ms"] if total["ms"] else 0.0
+    print(f"[kernel summary, launch-weighted] "
+          f"{json.dumps({k: {f: round(v, 4) for f, v in t.items()} for k, t in summary.items()})}",
+          flush=True)
+
+
 def main(argv):
     try:
         import torch
@@ -2752,6 +3018,7 @@ def main(argv):
     # text context: 77 prompt tokens, 154 with the conditioned prompt (FIFO)
     rows = timed("phase 2, kernels against their plain versions", phase_kernels, rows_fifo, 2,
                  154, 77)
+    timed("phase 2b, norms against their plain versions", phase_norms, rows)
     unet_runs = timed("phase 3, U-Net against its plain path", phase_unet_reference)
     shapes, model, main_frames = timed("phase 4, main path", phase_main_path, new_video_length,
                                        num_partitions)
@@ -2771,34 +3038,9 @@ def main(argv):
     shapes.update(timed("phase 13, mesh", phase_mesh, main_frames, shapes["default"],
                         new_video_length, num_partitions))
     shapes.update(timed("phase 14, user scripts", phase_user_scripts))
+    timed("phase 15, norms at the runs' other shapes", phase_norm_shapes, shapes, rows)
 
-    for run, by_kernel in shapes.items():
-        for name, by_shape in by_kernel.items():
-            checked = {r["shape"] for r in rows if r["name"].split()[0] == name}
-            unchecked = set(by_shape) - checked
-            if unchecked:
-                fail(f"the path ({run}) gave {name} shapes not held to the plain version: "
-                     f"{unchecked}")
-    for r in rows:  # launches over the path's runs, and in each
-        kernel, shape = r["name"].split()[0], r.pop("shape")
-        for run in shapes:
-            r[f"launches_{run}"] = shapes[run][kernel].get(shape, 0)
-        r["launches"] = sum(r[f"launches_{run}"] for run in shapes)
-    # each Pallas kernel's rows (its fp32 path apart), weighted by their
-    # launches over the runs: the totals PERF.md's kernel table carries
-    summary = {}
-    for r in rows:
-        key = r["replaces"].split("(")[-1].rstrip(")") + (" fp32" if " fp32 " in r["name"] else "")
-        total = summary.setdefault(key, dict.fromkeys(
-            ("launches", "ms", "bound_ms", "plain_ms", "library_ms"), 0.0))
-        total["launches"] += r["launches"]
-        for field in ("ms", "bound_ms", "plain_ms", "library_ms"):
-            total[field] += r["launches"] * r[field]
-    for total in summary.values():  # the share of its bound the kernel reached over the runs
-        total["bound_share"] = total["bound_ms"] / total["ms"] if total["ms"] else 0.0
-    print(f"[kernel summary, launch-weighted] "
-          f"{json.dumps({k: {f: round(v, 4) for f, v in t.items()} for k, t in summary.items()})}",
-          flush=True)
+    kernel_summary(shapes, rows)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

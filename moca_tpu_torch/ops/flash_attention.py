@@ -49,6 +49,9 @@ adds one to its `launches` tally, keyed by shape (with "fp32" appended for
 the fp32 path), per launch. Each plain
 version rounds where its Pallas body rounds.
 
+The norms' kernels (ops/norms.py, csrc/norms.cu) are built here beside them,
+as one more library.
+
 The kernels are compiled from the repository's sources with `nvcc` for
 `sm_90a` (one process per source, started together, then linked into one
 library per kernel) into `build/kernels/` beside the package, at first use,
@@ -70,10 +73,12 @@ import torch
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # library -> its sources; K2's two designs are two units so that they compile
-# in parallel (the span design alone took nvcc longer than any other library)
+# in parallel (the span design alone took nvcc longer than any other library);
+# "norms" is the GroupNorm and LayerNorm kernels' library (ops/norms.py loads it)
 _SOURCES = {"flash": ("flash_attention.cu",),
             "packed": ("packed_attention.cu", "packed_span.cu"),
-            "fused": ("fused_qkv_attention.cu",), "onepass": ("flash_onepass.cu",)}
+            "fused": ("fused_qkv_attention.cu",), "onepass": ("flash_onepass.cu",),
+            "norms": ("norms.cu",)}
 _HEADERS = ("mma.cuh", "hopper.cuh", "flash_hopper.cuh", "attention_f32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -208,12 +213,20 @@ def build_kernels() -> dict:
 
 
 _p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-_ENTRY = {  # library -> (C entry point, its argtypes); "<entry>_f32" takes the same
-    "flash": ("moca_flash_attention", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
-    "packed": ("moca_packed_attention", [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _p]),
-    "fused": ("moca_fused_qkv_attention",
-              [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
-    "onepass": ("moca_flash_onepass", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
+def _with_f32(fn: str, argtypes) -> dict:
+    """K1-K4's entries: `fn` (bfloat16) and "<fn>_f32", which takes the same."""
+    return {fn: argtypes, fn + "_f32": argtypes}
+
+
+_ENTRY = {  # library -> {C entry point: its argtypes}
+    "flash": _with_f32("moca_flash_attention", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
+    "packed": _with_f32("moca_packed_attention", [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _p]),
+    "fused": _with_f32("moca_fused_qkv_attention",
+                       [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
+    "onepass": _with_f32("moca_flash_onepass", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
+    "norms": {"moca_group_norm": [_p, _p, _p, _p, _p, _i, _i, _ll, _ll, _i, _i, _i, _i, _i,
+                                  _ll, _f, _i, _p],
+              "moca_layer_norm": [_p, _p, _p, _p, _i, _i, _ll, _i, _i, _f, _p]},
 }
 # K1's and K4's designs, as their libraries number them (`plan` in the .cu):
 # mma.sync, then wgmma (persistent CTAs) with kv tiles of 64 and of 128 rows
@@ -221,20 +234,25 @@ _ENTRY = {  # library -> (C entry point, its argtypes); "<entry>_f32" takes the 
 ATTENTION_PATHS = ("mma_sync", "wgmma_kv64", "wgmma_kv128")
 
 
-def _entry(name: str, dtype=torch.bfloat16):
-    """The C entry point of library `name` for `dtype` (bfloat16, or float32:
-    the `_f32` symbol), the library built and loaded at first use."""
+def load_library(name: str):
+    """Library `name` of `_SOURCES`, built and loaded at first use, with
+    every entry's argtypes set."""
     if name not in _libs:
         lib = ctypes.CDLL(str(build_kernels()[name]))
-        fn, argtypes = _ENTRY[name]
-        for sym in (fn, fn + "_f32"):
+        for sym, argtypes in _ENTRY[name].items():
             getattr(lib, sym).argtypes = argtypes
             getattr(lib, sym).restype = _i
         lib.moca_cuda_error_string.argtypes = [_i]
         lib.moca_cuda_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
-    sym = _ENTRY[name][0] + ("_f32" if dtype == torch.float32 else "")
-    return _libs[name], getattr(_libs[name], sym)
+    return _libs[name]
+
+
+def _entry(name: str, dtype=torch.bfloat16):
+    """The C entry point of K1-K4's library `name` for `dtype` (bfloat16, or
+    float32: the `_f32` symbol)."""
+    lib = load_library(name)
+    return lib, getattr(lib, next(iter(_ENTRY[name])) + ("_f32" if dtype == torch.float32 else ""))
 
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -274,8 +292,8 @@ def _raise_on(lib, err: int, what: str):
 def attention_path(name: str, b: int, sq: int, sk: int, h: int, d: int) -> str:
     """The design K1 (`name` "flash") or K4 ("onepass") takes at q [b, sq, h, d]
     over k, v [b, sk, h, d], one of ATTENTION_PATHS: the library's own plan."""
-    lib, _ = _entry(name)
-    fn = getattr(lib, _ENTRY[name][0] + "_plan")
+    lib, entry = _entry(name)
+    fn = getattr(lib, entry.__name__ + "_plan")
     fn.argtypes, fn.restype = [_i] * 5, _i
     return ATTENTION_PATHS[fn(b, sq, sk, h, d)]
 

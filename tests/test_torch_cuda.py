@@ -24,11 +24,13 @@ faults read far above it.
 """
 
 import contextlib
+import math
 
 import pytest
 import torch
 
 from moca_tpu_torch.ops import flash_attention as tfa
+from moca_tpu_torch.ops import norms as tn
 
 TOL = 2e-2
 FP32_TOL = 1e-4
@@ -528,3 +530,215 @@ def test_cuda_fp32_on_softmax_hazards(kernel, kind):
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert max_row_rel_err(out, exact) <= tol
+
+
+# ---------------------------------------------------------------------------
+# The norms (csrc/norms.cu) against their plain versions in the working type
+# ---------------------------------------------------------------------------
+
+# Largest |kernel - plain| over the output, relative to max |plain|: both
+# compute the statistics in fp32 in other orders and round once to the working
+# type, so they differ by at most one unit of that rounding (2^-8 in bf16,
+# 2^-11 in fp16) and in fp32 by the statistics' rounding (~1e-6 at |mean| =
+# 100 std). Planted faults (eps swapped, a group boundary one channel off,
+# SiLU dropped) read far above it.
+NORM_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-4}
+NORM_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def norm_err(out, ref):
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def _norm_inputs(shape, c, dtype, seed, scale=2.0, shift=0.5):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dtype)
+    w = (1 + 0.3 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    b = (0.5 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    return x, w, b
+
+
+def _groups(c):
+    return 32 if c % 32 == 0 else math.gcd(c, 32)
+
+
+# channels-last shapes of the U-Net's GroupNorms (per-frame [BT, H, W, C] and
+# whole-row [B, T, H, W, C] slabs; group sizes 10, 20, 30, 40, 60, 80), then
+# the gcd fallback: C = 20 (4 groups of 5) and 100 (4 of 25), not whole
+# 16-byte vectors, and C = 48 (16 groups of 3, a vector across groups)
+_GN_CASES = [(32, 40, 64, 320), (2, 16, 40, 64, 320), (32, 20, 32, 640), (32, 10, 16, 1280),
+             (32, 20, 32, 960), (32, 10, 16, 1920), (2, 16, 10, 16, 1280), (32, 5, 8, 2560),
+             (4, 6, 7, 20), (4, 6, 7, 100), (4, 6, 7, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,eps", [(None, 1e-6), ("silu", 1e-5), (None, 1e-5), ("silu", 1e-6)])
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("shape", _GN_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_cuda_group_norm_matches_plain(shape, dtype, act, eps):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    c = shape[-1]
+    x, w, b = _norm_inputs(shape, c, dtype, seed=len(shape) * 7 + c)
+    tn.reset_launch_counts()
+    out = tn.group_norm(x, w, b, _groups(c), eps, act)
+    torch.cuda.synchronize()
+    assert sum(tn.group_norm.launches.values()) == 1 and out.dtype == dtype
+    assert torch.isfinite(out.float()).all()
+    assert norm_err(out, tn.group_norm_plain(x, w, b, _groups(c), eps, act)) <= NORM_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("shape", [(32, 40, 64, 320), (2, 16, 10, 16, 1280), (4, 6, 7, 100)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_cuda_group_norm_faults_fail_the_tolerance(shape, dtype):
+    """Inputs whose variance within a group (1e-5) is near eps and whose groups
+    sit at different offsets: the kernel holds the tolerance, and with eps
+    swapped, its groups shifted by one channel (input, weight and bias rolled
+    by one channel, the output rolled back) or SiLU dropped it must fail."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    c = shape[-1]
+    groups, eps = _groups(c), 1e-5
+    x, w, b = _norm_inputs(shape, c, torch.float32, seed=3, scale=3.2e-3, shift=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = (x + torch.randn(groups, generator=gen, device="cuda").repeat_interleave(c // groups))
+    x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    ref = tn.group_norm_plain(x, w, b, groups, eps, "silu")
+    assert norm_err(tn.group_norm(x, w, b, groups, eps, "silu"), ref) <= NORM_TOL[dtype]
+    roll = lambda t, k: torch.roll(t, k, dims=-1)
+    faults = {
+        "eps swapped": tn.group_norm(x, w, b, groups, 1e-6, "silu"),
+        "group boundary": roll(tn.group_norm(roll(x, 1), roll(w, 1), roll(b, 1), groups, eps,
+                                             "silu"), -1),
+        "silu dropped": tn.group_norm(x, w, b, groups, eps, None),
+    }
+    for what, fault in faults.items():
+        assert norm_err(fault, ref) > NORM_TOL[dtype], what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=["bf16", "fp16", "fp32"])
+def test_cuda_norms_on_awkward_inputs(dtype):
+    """Non-contiguous inputs, |mean| = 100 std (the statistics' stability),
+    and an affine in fp32 beside a bf16 or fp16 input."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    x, w, b = _norm_inputs((32, 64, 40, 320), 320, dtype, seed=5)
+    xt = x.transpose(1, 2)  # [32, 40, 64, 320], not contiguous
+    assert not xt.is_contiguous()
+    assert norm_err(tn.group_norm(xt, w, b, 32, 1e-6, "silu"),
+                    tn.group_norm_plain(xt, w, b, 32, 1e-6, "silu")) <= NORM_TOL[dtype]
+    rows = torch.randn(4096, 640, device="cuda").to(dtype)[:, :320]  # rows of stride 640
+    assert norm_err(tn.layer_norm(rows, w, b, 1e-5),
+                    tn.layer_norm_plain(rows, w, b, 1e-5)) <= NORM_TOL[dtype]
+    far, _, _ = _norm_inputs((2, 16, 40, 64, 320), 320, dtype, seed=6, scale=1.0, shift=100.0)
+    assert norm_err(tn.group_norm(far, w, b, 32, 1e-5, None),
+                    tn.group_norm_plain(far, w, b, 32, 1e-5, None)) <= NORM_TOL[dtype]
+    far_rows = far.reshape(-1, 320)[:8192]
+    assert norm_err(tn.layer_norm(far_rows, w, b, 1e-5),
+                    tn.layer_norm_plain(far_rows, w, b, 1e-5)) <= NORM_TOL[dtype]
+    if dtype != torch.float32:
+        w32, b32 = w.float() * 1.001, b.float()
+        assert norm_err(tn.group_norm(x, w32, b32, 32, 1e-6, "silu"),
+                        tn.group_norm_plain(x, w32, b32, 32, 1e-6, "silu")) <= NORM_TOL[dtype]
+        flat = x.reshape(-1, 320)[:8192]
+        assert norm_err(tn.layer_norm(flat, w32, b32, 1e-5),
+                        tn.layer_norm_plain(flat, w32, b32, 1e-5)) <= NORM_TOL[dtype]
+
+
+# [R, C] of the LayerNorms: the U-Net's transformers (320, 640, 1280, the init
+# attention's 512), the text tower (77 tokens, 1024), the ViT-H/14 (257
+# tokens, 1280); rows that are not whole vectors (C = 100) or too wide for a
+# lane's registers (C = 4096)
+_LN_CASES = [(8192, 320), (4096, 640), (2048, 1280), (1024, 512), (154, 1024), (514, 1280),
+             (300, 100), (64, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [1e-5, 1e-6])
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("r,c", _LN_CASES)
+def test_cuda_layer_norm_matches_plain(r, c, dtype, eps):
+    """The kernel within NORM_TOL of the plain version; with eps swapped
+    (rows whose variance is near eps) or the weight and bias swapped, beyond
+    it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    x, w, b = _norm_inputs((r, c), c, dtype, seed=r + c)
+    tn.reset_launch_counts()
+    out = tn.layer_norm(x, w, b, eps)
+    torch.cuda.synchronize()
+    assert tn.layer_norm.launches == {(r, c) + tn._DTYPE_TAGS[dtype]: 1}
+    assert torch.isfinite(out.float()).all() and out.dtype == dtype
+    assert norm_err(out, tn.layer_norm_plain(x, w, b, eps)) <= NORM_TOL[dtype]
+    assert norm_err(tn.layer_norm(x, b, w, eps), tn.layer_norm_plain(x, w, b, eps)) > NORM_TOL[dtype]
+    small = (x.float() * 1.6e-3).to(dtype)
+    other = 1e-6 if eps == 1e-5 else 1e-5
+    assert norm_err(tn.layer_norm(small, w, b, other),
+                    tn.layer_norm_plain(small, w, b, eps)) > NORM_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_unaligned_rows():
+    """An input 2 bytes off a 16-byte boundary takes one value a lane (the
+    any-row kernel) and still matches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    x, w, b = _norm_inputs((1, 1 + 256 * 320), 320, torch.bfloat16, seed=8)
+    x = x.reshape(-1)[1:].view(256, 320)
+    assert x.data_ptr() % 16 and tn.layer_norm_vectors(320, tn._vector(2, 320, x.data_ptr())) == 0
+    assert norm_err(tn.layer_norm(x, w, b, 1e-5), tn.layer_norm_plain(x, w, b, 1e-5)) <= 1e-2
+    g = tn.group_norm(x.reshape(4, 64, 320), w, b, 32, 1e-6, "silu")
+    assert norm_err(g, tn.group_norm_plain(x.reshape(4, 64, 320), w, b, 32, 1e-6, "silu")) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_cuda_norm_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    x = torch.zeros(2, 8, 64, device="cuda", dtype=torch.float64)
+    w = torch.ones(64, device="cuda", dtype=torch.float64)
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        tn.group_norm(x, w, w, 32, 1e-5)
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        tn.layer_norm(x, w, w, 1e-5)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tn.layer_norm(xb, wb.cpu(), wb, 1e-5)
+    with pytest.raises(ValueError, match="groups"):
+        tn.group_norm(xb, wb, wb, 5, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_unet_forward_launches_one_kernel_a_norm(monkeypatch):
+    """A full-width U-Net forward (the shipped config, bf16, 1 row of 16
+    frames at a 16 x 16 latent) on the card: one launch of each norm module,
+    166 GroupNorms and 99 LayerNorms, and no call of the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from moca_tpu_torch.models.unet3d import UNet3D, UNetConfig
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain norm ran on the card")
+
+    monkeypatch.setattr(tn, "group_norm_plain", refuse)
+    monkeypatch.setattr(tn, "layer_norm_plain", refuse)
+    with torch.device("cuda"):
+        model = UNet3D(UNetConfig()).to(torch.bfloat16).eval()
+    gns = sum(isinstance(m, tn.GroupNorm32) for m in model.modules())
+    lns = sum(isinstance(m, tn.LayerNorm32) for m in model.modules())
+    assert (gns, lns) == (166, 99)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn((1, 16, 16, 16, 4), generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((1, 77, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+    ts = torch.full((1, 16), 500, device="cuda", dtype=torch.long)
+    tn.reset_launch_counts()
+    with torch.inference_mode():
+        out = model(x, ts, ctx, fps=16)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert sum(tn.group_norm.launches.values()) == gns
+    assert sum(tn.layer_norm.launches.values()) == lns

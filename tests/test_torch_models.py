@@ -9,6 +9,7 @@ magnitude.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,7 @@ from moca_tpu_torch.models import clip_text as tclip
 from moca_tpu_torch.models import unet3d as tunet
 from moca_tpu_torch.models import vae as tvae
 from moca_tpu_torch.models.convert import clip_from_jax, unet_from_jax, vae_from_jax
+from moca_tpu_torch.ops import norms as tnorms
 from moca_tpu_torch.ops.norms import GroupNorm32, LayerNorm32
 
 # GroupNorm(32)-compatible widths, two levels with attention at both,
@@ -162,3 +164,134 @@ def test_layernorm32_keeps_input_dtype():
     assert out.dtype == torch.bfloat16
     ref = torch.nn.functional.layer_norm(x.float(), (16,))
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=0)
+
+
+def _affine(c, seed):
+    w, b = _rand((2, c), seed)
+    return torch.from_numpy(1 + 0.3 * w), torch.from_numpy(0.5 * b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("channels,act,eps", [(64, None, 1e-6), (20, "silu", 1e-5)])
+def test_group_norm_plain_keeps_its_results(channels, act, eps, dtype):
+    """`group_norm_plain` is GroupNorm32's former body, bit for bit, and the
+    module on CPU tensors takes it and launches nothing."""
+    x = torch.from_numpy(_rand((2, 3, 5, channels), 11) * 3 + 1).to(dtype)
+    w, b = _affine(channels, 12)
+    groups = 32 if channels % 32 == 0 else math.gcd(channels, 32)
+    x32 = x.float().reshape(2, -1, groups, channels // groups)  # the former body
+    var, mean = torch.var_mean(x32, dim=(1, 3), correction=0, keepdim=True)
+    want = ((x32 - mean) * torch.rsqrt(var + eps)).reshape(x.shape) * w + b
+    want = (torch.nn.functional.silu(want) if act else want).to(dtype)
+    assert torch.equal(tnorms.group_norm_plain(x, w, b, groups, eps, act), want)
+    norm = GroupNorm32(32, channels, eps=eps, act=act)
+    with torch.no_grad():
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+    tnorms.reset_launch_counts()
+    with torch.no_grad():
+        assert torch.equal(norm(x), want)
+    assert tnorms.group_norm.launches == {} and tnorms.layer_norm.launches == {}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_layer_norm_plain_keeps_its_results(dtype):
+    """`layer_norm_plain` is LayerNorm32's former body, bit for bit, and the
+    module on CPU tensors takes it and launches nothing."""
+    x = torch.from_numpy(_rand((2, 5, 48), 13) * 2 - 3).to(dtype)
+    w, b = _affine(48, 14)
+    want = torch.nn.functional.layer_norm(x.float(), (48,), w, b, 1e-5).to(dtype)
+    assert torch.equal(tnorms.layer_norm_plain(x, w, b, 1e-5), want)
+    norm = LayerNorm32(48)
+    with torch.no_grad():
+        norm.weight.copy_(w)
+        norm.bias.copy_(b)
+    tnorms.reset_launch_counts()
+    with torch.no_grad():
+        assert torch.equal(norm(x), want)
+    assert tnorms.group_norm.launches == {} and tnorms.layer_norm.launches == {}
+
+
+# [N, M, C] of the U-Net's GroupNorms in the stream (16 rows) and the clip (2
+# rows): per-frame slabs at each level, whole rows (temporal blocks), the
+# decoder's concatenations; the VAE's 8-frame decode
+_GN_SHAPES = [(256, 2560, 320), (16, 40960, 320), (32, 2560, 320), (2, 40960, 320),
+              (256, 640, 640), (256, 640, 960), (256, 160, 1280), (256, 160, 1920),
+              (256, 40, 1280), (256, 40, 2560), (16, 640, 1280), (8, 163840, 128),
+              (2, 7, 20), (3, 1, 100)]
+
+
+@pytest.mark.parametrize("n,m,c", _GN_SHAPES)
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_group_norm_plan_covers_every_row(n, m, c, itemsize):
+    """The GroupNorm kernels' plan: the chunks cover each n's rows once, none
+    empty; a block has at most 1024 threads and its statistics fit in shared
+    memory; each thread row walks GN_MIN_ROWS rows where the chunk has them;
+    the launch comes within a tenth of GN_BLOCKS blocks where the rows allow."""
+    vec = tnorms._vector(itemsize, c, 0)
+    assert vec == (16 // itemsize if c % (16 // itemsize) == 0 else 1)
+    rows, chunks, rpc = tnorms.group_norm_plan(n, m, c, vec)
+    assert (chunks - 1) * rpc < m <= chunks * rpc
+    assert 32 <= c // vec * rows <= 1024 and 2 * 4 * rows * c <= 64 * 1024
+    assert c // vec * (rows - 1) < 32 or rows * tnorms.GN_MIN_ROWS <= rpc
+    want = min(tnorms.GN_BLOCKS, n * max(1, m // tnorms.GN_MIN_ROWS))
+    assert 0.9 * want <= n * chunks <= n * -(-tnorms.GN_BLOCKS // n)
+    assert tnorms._vector(itemsize, c, 8) == 1  # an unaligned input takes one value a thread
+
+
+def _combine(entries):
+    """(count, mean, M2) of the union of disjoint sets given as (count, mean,
+    M2) entries, as csrc/norms.cu combines them: the weighted mean, then M2
+    about it, sum of M2_e + count_e * (mean_e - mean)^2."""
+    total = sum(e[0] for e in entries)
+    mean = sum(e[0] * e[1] for e in entries) / total
+    return total, mean, sum(e[2] + e[0] * (e[1] - mean) ** 2 for e in entries)
+
+
+@pytest.mark.parametrize("n,m,c", [(2, 2000, 320), (3, 1000, 20), (2, 700, 96), (1, 5, 40),
+                                   (2, 42, 20)])
+def test_group_norm_kernel_statistics_model(n, m, c):
+    """A model of csrc/norms.cu's statistics on the plan's chunks: thread row
+    rr of a block walks rows rr, rr + R, ... of its chunk (base + (rr < extra)
+    of them), each group's (thread row, channel) entries combine into a
+    chunk's partial, the partials of an n combine with counts chunk rows x
+    group size. The mean and variance must be var_mean's over each group."""
+    groups = 32 if c % 32 == 0 else math.gcd(c, 32)
+    gs = c // groups
+    x = _rand((n, m, c), 15).astype(np.float64) * 2 + 5
+    vec = tnorms._vector(2, c, 0)
+    rows, chunks, rpc = tnorms.group_norm_plan(n, m, c, vec)
+    assert c // vec * rows >= 32  # a whole warp combines each group
+    for i in range(n):
+        parts = []
+        for k in range(chunks):
+            chunk = x[i, k * rpc:(k + 1) * rpc]
+            length = len(chunk)
+            assert length > 0
+            entries = [[] for _ in range(groups)]
+            for rr in range(rows):
+                mine = chunk[rr::rows]
+                count = length // rows + (rr < length % rows)
+                assert count == len(mine)
+                for ch in range(c):
+                    col = mine[:, ch]
+                    mean = col.mean() if count else 0.0
+                    entries[ch // gs].append((count, mean, ((col - mean) ** 2).sum()))
+            parts.append([_combine(e) for e in entries])
+        for g in range(groups):
+            rows_k = [min(m, (k + 1) * rpc) - k * rpc for k in range(chunks)]
+            tot = _combine([(rows_k[k] * gs,) + tuple(parts[k][g][1:]) for k in range(chunks)])
+            want = x[i, :, g * gs:(g + 1) * gs]
+            assert tot[0] == want.size
+            np.testing.assert_allclose(tot[1], want.mean(), rtol=1e-12)
+            np.testing.assert_allclose(tot[2] / tot[0], want.var(), rtol=1e-10)
+
+
+@pytest.mark.parametrize("c,itemsize,want", [
+    (320, 2, 2), (640, 2, 3), (1280, 2, 5), (1024, 2, 4), (512, 2, 2), (2048, 2, 8),
+    (1280, 4, 10), (1024, 4, 8), (2048, 4, 16), (4096, 2, 0), (100, 2, 0), (36, 4, 1)])
+def test_layer_norm_vectors(c, itemsize, want):
+    """16-byte vectors a lane holds for the LayerNorm kernel: the row in
+    registers up to 2048 values, the any-row kernel (0) past it or where the
+    row is not whole vectors."""
+    assert tnorms.layer_norm_vectors(c, tnorms._vector(itemsize, c, 0)) == want
