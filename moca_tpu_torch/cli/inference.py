@@ -22,6 +22,18 @@ moca_tpu_torch on the GPU:
     (inference.py:82-84,110-117). FreeInit samples without the image
     tokens, as the JAX CLI does. --mode i2v or an i2v config loads the i2v
     model; i2v runs one prompt a call (--bs 1);
+  * a hybrid i2v config (DynamiCrafter's, configs/dynamicrafter_inference_1024_v1.0.yaml):
+    the image's VAE latent is concatenated to every frame's input and the
+    unconditional row's image tokens are an all-zero image's
+    (`T2VPipeline.image_condition`); the config's zero-SNR v-prediction
+    schedule is used, and DynamiCrafter's own flags set the rest:
+        python -m moca_tpu_torch.cli.inference --mode i2v \
+            --config configs/dynamicrafter_inference_1024_v1.0.yaml --height 576 --width 1024 \
+            --frame_stride 10 --unconditional_guidance_scale 7.5 --guidance_rescale 0.7 \
+            --timestep_spacing uniform_trailing --ddim_eta 1.0 ...
+    (--frame_stride is the U-Net's frame-stride condition, in --fps's place;
+    --guidance_rescale rescales the guided output, samplers/ddim.py;
+    --timestep_spacing the DDIM timesteps, uniform by default);
   * --mesh DP,FIFO: one process a GPU (parallel/mesh.py), the 2*--bs CFG
     rows of each U-Net call and the decode's frame rows split over the ranks
     where they tile them, rank 0 writing the mp4s:
@@ -78,6 +90,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--frames", type=int, default=16)
     p.add_argument("--fps", type=int, default=28)
+    p.add_argument("--frame_stride", type=int, default=None,
+                   help="the frame-stride condition of a DynamiCrafter U-Net (fs), in --fps's "
+                        "place; by default --fps")
+    p.add_argument("--guidance_rescale", type=float, default=0.0,
+                   help="rescale the guided output to the conditional output's std by this "
+                        "share (DynamiCrafter's samplers/ddim.py); 0 = off")
+    p.add_argument("--timestep_spacing", type=str, default="uniform",
+                   choices=["uniform", "uniform_trailing"],
+                   help="DDIM timesteps: uniform (linspace 0..999) or uniform_trailing "
+                        "(DynamiCrafter: 19, 39, ..., 999 for 50 steps)")
     p.add_argument("--savefps", type=int, default=10)
     p.add_argument("--num_processes", type=int, default=1)
     p.add_argument("--rank", type=int, default=0)
@@ -119,8 +141,12 @@ def load_pipeline(args, device=None) -> T2VPipeline:
     return T2VPipeline.build(
         model, load_tokenizer(args.bpe_path), num_steps=args.ddim_steps, eta=args.ddim_eta,
         use_scale=cfg.diffusion.use_scale, guidance_scale=args.unconditional_guidance_scale,
-        fps=args.fps, temporal_cfg_scale=args.unconditional_guidance_scale_temporal,
-        uncond_type=cfg.diffusion.uncond_type, mesh=mesh)
+        fps=args.fps if args.frame_stride is None else args.frame_stride,
+        temporal_cfg_scale=args.unconditional_guidance_scale_temporal,
+        uncond_type=cfg.diffusion.uncond_type, mesh=mesh,
+        guidance_rescale=args.guidance_rescale,
+        hybrid=cfg.diffusion.conditioning_key == "hybrid",
+        ddim_discretize=args.timestep_spacing, **cfg.sampling.schedule_kwargs())
 
 
 def _host_frames(video: torch.Tensor):
@@ -192,19 +218,20 @@ def _run(args, pipe):
 
     for i, prompt in enumerate(shard):
         t0 = time.perf_counter()
-        out_path, img_tokens = path(prompt), None
+        out_path = path(prompt)
         if cond_images is not None:  # global prompt index == image index
-            img_tokens = pipe.model.get_image_embeds(cond_images[first + i][None])
             out_path = os.path.join(args.savedir, cond_names[first + i] + ".mp4")
         samples = []
         for s in range(args.n_samples):
             normal = sample_normal(args.seed, first + i, s, args.n_samples, device)
+            cond = ({} if cond_images is None
+                    else pipe.image_condition(cond_images[first + i][None], normal))
             if args.freeinit_iters > 1:  # without the image tokens, as the JAX CLI
                 video = pipe.sample_with_freeinit(prompt, normal=normal,
                                                   iterations=args.freeinit_iters, **size)
             else:
-                video = pipe(prompt, normal=normal, image_tokens=img_tokens,
-                             use_ddpm=args.ddim_steps <= 0, **size)
+                video = pipe(prompt, normal=normal, use_ddpm=args.ddim_steps <= 0, **cond,
+                             **size)
             samples.append(_host_frames(video))
         save(samples, out_path)
         log.info("[%d/%d] %.1fs %s", i + 1, len(shard), time.perf_counter() - t0, prompt[:60])

@@ -148,8 +148,10 @@ def load_model(args, device=None, visual: bool | None = False):
     the config says (`is_i2v`)."""
     cfg = load_model_config(args.config)
     visual = cfg.is_i2v if visual is None else visual
-    if cfg.diffusion.conditioning_key != "crossattn":
-        raise NotImplementedError("the port runs the text-to-video crossattn model only")
+    key = cfg.diffusion.conditioning_key
+    if not (key == "crossattn" or (key == "hybrid" and visual)):
+        raise NotImplementedError("the port runs the crossattn model, and the hybrid one "
+                                  "(DynamiCrafter) as an i2v model")
     if not os.path.exists(args.ckpt_path):
         raise FileNotFoundError(f"Error: checkpoint [{args.ckpt_path}] Not Found!")
     device = resolve_device(device)
@@ -157,7 +159,8 @@ def load_model(args, device=None, visual: bool | None = False):
     with torch.device(device):
         if visual:
             model = LatentVisualDiffusion(cfg.unet, cfg.vae, cfg.clip, CLIPVisionConfig(),
-                                          cfg.finegrained, scale_factor=cfg.diffusion.scale_factor)
+                                          cfg.finegrained, scale_factor=cfg.diffusion.scale_factor,
+                                          image_video_length=cfg.image_video_length)
         else:
             model = LatentDiffusion(cfg.unet, cfg.vae, cfg.clip,
                                     scale_factor=cfg.diffusion.scale_factor)

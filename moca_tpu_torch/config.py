@@ -9,6 +9,13 @@ target is refused here. The parameter type is the caller's choice (the CLI's
 `--precision`), not the YAML's. An i2v config (`is_i2v`) also names the
 image projector: the Resampler when `model.params.finegrained` is set, else
 ImageProjModel. PyYAML is imported inside `load_model_config`.
+
+DynamiCrafter's configs (its configs/inference_1024_v1.0.yaml) read into the
+same configs: `image_cross_attention` and `fs_condition` are its spellings
+of `use_image_attention` and `fps_cond`, `img_cond_stage_config` and
+`image_proj_stage_config` its image tower and Resampler (with `video_length`,
+per-frame image tokens), and the keys of its schedule and sampler that the
+JAX package's DiffusionParams lacks go into `SamplingParams`.
 """
 
 from __future__ import annotations
@@ -51,6 +58,32 @@ class DiffusionParams:
 
 
 @dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """DynamiCrafter's keys of model.params (lvdm/models/ddpm3d.py): a
+    zero-terminal-SNR schedule, v-prediction and the dynamic rescale of x0
+    (the `use_scale` ramp to `base_scale`). The defaults are VideoCrafter's.
+    (unet_config's `default_fs` is the U-Net's frame stride when it is given
+    none; the port's pipelines always give one, `--frame_stride`.)"""
+
+    rescale_betas_zero_snr: bool = False
+    parameterization: str = "eps"
+    use_dynamic_rescale: bool = False
+    base_scale: float = 0.7
+
+    def schedule_kwargs(self) -> Dict[str, Any]:
+        """The keywords of `schedule.make_schedule` that these set, none at
+        the defaults."""
+        out: Dict[str, Any] = {}
+        if self.rescale_betas_zero_snr:
+            out["rescale_betas_zero_snr"] = True
+        if self.parameterization != "eps":
+            out["parameterization"] = self.parameterization
+        if self.use_dynamic_rescale:
+            out.update(dynamic_rescale=True, scale_b=self.base_scale)
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     diffusion: DiffusionParams
     unet: UNetConfig
@@ -62,6 +95,9 @@ class ModelConfig:
     # i2v projector: the Resampler on the vision tower's tokens (True) or
     # ImageProjModel on its pooled embedding
     finegrained: bool = False
+    # the Resampler's queries for each of this many frames (DynamiCrafter)
+    image_video_length: int | None = None
+    sampling: SamplingParams = SamplingParams()
 
 
 def _unet_from_yaml(p: Dict[str, Any]) -> UNetConfig:
@@ -84,8 +120,8 @@ def _unet_from_yaml(p: Dict[str, Any]) -> UNetConfig:
         use_causal_attention=p.get("use_causal_attention", False),
         temporal_length=p.get("temporal_length", 16),
         addition_attention=p.get("addition_attention", False),
-        use_image_attention=p.get("use_image_attention", False),
-        fps_cond=p.get("fps_cond", False),
+        use_image_attention=p.get("use_image_attention", p.get("image_cross_attention", False)),
+        fps_cond=p.get("fps_cond", p.get("fs_condition", False)),
     )
 
 
@@ -167,9 +203,20 @@ def model_config_from_dict(raw: Dict[str, Any]) -> ModelConfig:
     unet = _unet_from_yaml(mp["unet_config"]["params"])
     vae = _vae_from_yaml(mp["first_stage_config"]["params"])
     _check_encoder_target(mp["cond_stage_config"].get("target", ""), "cond_stage_config")
-    if "cond_img_config" in mp:
-        _check_encoder_target(mp["cond_img_config"].get("target", ""), "cond_img_config")
+    for key in ("cond_img_config", "img_cond_stage_config", "image_proj_stage_config"):
+        if key in mp:
+            _check_encoder_target(mp[key].get("target", ""), key)
     clip = _clip_from_yaml(mp["cond_stage_config"].get("params", {}))
-    is_i2v = "LatentVisualDiffusion" in raw["model"].get("target", "") or "cond_img_config" in mp
+    is_i2v = ("LatentVisualDiffusion" in raw["model"].get("target", "")
+              or "cond_img_config" in mp or "img_cond_stage_config" in mp)
+    proj = mp.get("image_proj_stage_config", {})
+    finegrained = mp.get("finegrained", proj.get("target", "").endswith("Resampler"))
+    sampling = SamplingParams(
+        rescale_betas_zero_snr=mp.get("rescale_betas_zero_snr", False),
+        parameterization=mp.get("parameterization", "eps"),
+        use_dynamic_rescale=mp.get("use_dynamic_rescale", False),
+        base_scale=mp.get("base_scale", 0.7))
     return ModelConfig(diffusion=diffusion, unet=unet, vae=vae, clip=clip, is_i2v=is_i2v,
-                       finegrained=mp.get("finegrained", False))
+                       finegrained=finegrained,
+                       image_video_length=proj.get("params", {}).get("video_length"),
+                       sampling=sampling)

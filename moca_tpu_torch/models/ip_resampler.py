@@ -65,13 +65,17 @@ class PerceiverAttention(nn.Module):
 
 class Resampler(nn.Module):
     """Perceiver resampler (ip_resampler.py:93-135): tokens [B, L, E] ->
-    [B, num_queries, output_dim]."""
+    [B, num_queries, output_dim]. With `video_length` (DynamiCrafter's
+    resampler.py), num_queries queries for each of video_length frames,
+    frame-major: [B, video_length * num_queries, output_dim], all of them
+    attending together."""
 
     def __init__(self, dim: int = 1024, depth: int = 4, dim_head: int = 64, heads: int = 12,
                  num_queries: int = 16, embedding_dim: int = 1280, output_dim: int = 1024,
-                 ff_mult: int = 4):
+                 ff_mult: int = 4, video_length: int | None = None):
         super().__init__()
-        self.latents = nn.Parameter(torch.randn(1, num_queries, dim) / dim**0.5)
+        queries = num_queries * (video_length or 1)
+        self.latents = nn.Parameter(torch.randn(1, queries, dim) / dim**0.5)
         self.proj_in = nn.Linear(embedding_dim, dim)
         self.proj_out = nn.Linear(dim, output_dim)
         self.norm_out = LayerNorm32(output_dim)

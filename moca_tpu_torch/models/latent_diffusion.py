@@ -18,7 +18,7 @@ from moca_tpu_torch import resolve_device
 from moca_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextEncoder
 from moca_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionEncoder
 from moca_tpu_torch.models.ip_resampler import ImageProjModel, Resampler
-from moca_tpu_torch.models.unet3d import UNet3D, UNetConfig
+from moca_tpu_torch.models.unet3d import FRAME_IMAGE_TOKENS, UNet3D, UNetConfig
 from moca_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from moca_tpu_torch.utils import distributions
 
@@ -179,18 +179,26 @@ class LatentVisualDiffusion(LatentDiffusion):
     on its pooled embedding. The projector's sizes follow the configs, as in
     the JAX package (the reference hardcodes the shipped towers' 1024/1280).
     The tower and the projector compute in fp32 whatever the other towers'
-    type (`keep_image_towers_fp32`), as the reference builds them."""
+    type (`keep_image_towers_fp32`), as the reference builds them.
+
+    `image_video_length` (DynamiCrafter): the Resampler's 16 queries for each
+    of that many frames, so that each frame's image cross-attention reads
+    its own 16 tokens (`UNet3D`'s per-frame context)."""
 
     def __init__(self, unet_cfg: UNetConfig, vae_cfg: VAEConfig, clip_cfg: CLIPTextConfig,
                  vision_cfg: CLIPVisionConfig, finegrained: bool = False,
-                 scale_factor: float = 0.18215):
+                 scale_factor: float = 0.18215, image_video_length: int | None = None):
         super().__init__(unet_cfg, vae_cfg, clip_cfg, scale_factor)
         self.vision_cfg, self.finegrained = vision_cfg, finegrained
         self.vision = CLIPVisionEncoder(vision_cfg)
+        if image_video_length and not finegrained:
+            raise ValueError("per-frame image tokens come from the finegrained Resampler")
         if finegrained:
             self.image_proj = Resampler(dim=vision_cfg.output_dim, depth=4, dim_head=64, heads=12,
-                                        num_queries=16, embedding_dim=vision_cfg.width,
-                                        output_dim=unet_cfg.context_dim)
+                                        num_queries=FRAME_IMAGE_TOKENS,
+                                        embedding_dim=vision_cfg.width,
+                                        output_dim=unet_cfg.context_dim,
+                                        video_length=image_video_length)
         else:
             self.image_proj = ImageProjModel(cross_attention_dim=unet_cfg.context_dim,
                                              clip_embeddings_dim=vision_cfg.output_dim,

@@ -237,6 +237,22 @@ class RelativePosition(nn.Module):
 
 
 TEXT_CONTEXT_LEN = 77  # text tokens ahead of the image tokens (attention.py:82-87)
+# image tokens a frame in a per-frame context (DynamiCrafter's UNetModel.forward
+# tests the context's length against 77 + 16 T, a constant of its code)
+FRAME_IMAGE_TOKENS = 16
+
+
+def frame_context(context: torch.Tensor, frames: int) -> torch.Tensor:
+    """[B, L, D] -> the [B*T, L', D] context of each frame row: the row's
+    context repeated, or, where L = 77 + 16 T (a per-frame image context,
+    frame-major), the 77 text tokens and that frame's own 16 image tokens."""
+    b, length = context.shape[:2]
+    if length != TEXT_CONTEXT_LEN + frames * FRAME_IMAGE_TOKENS:
+        return context.repeat_interleave(frames, dim=0)
+    text = context[:, :TEXT_CONTEXT_LEN].repeat_interleave(frames, dim=0)
+    image = context[:, TEXT_CONTEXT_LEN:].reshape(b * frames, FRAME_IMAGE_TOKENS,
+                                                   context.shape[-1])
+    return torch.cat([text, image], dim=1)
 
 
 class CrossAttention(nn.Module):
@@ -347,7 +363,11 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """self-attn -> cross-attn (or second self-attn) -> GEGLU FF, pre-norm.
     A causal block masks attn1 and, when it has no context, attn2 too
-    (attention.py:206-218 passes the mask to both and then drops the context)."""
+    (attention.py:206-218 passes the mask to both and then drops the context).
+    `xattn_span`: the trace range around the attn2 call, which the spatial
+    transformer names (`unet.xattn`)."""
+
+    xattn_span = None
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int | None,
                  relative_position: bool = False, temporal_length: int | None = None,
@@ -365,8 +385,14 @@ class BasicTransformerBlock(nn.Module):
 
     def forward(self, x, context=None):
         x = self.attn1(self.norm1(x)) + x
-        x = self.attn2(self.norm2(x), context=context) + x
+        x = self._attend_context(self.norm2(x), context) + x
         return self.ff(self.norm3(x)) + x
+
+    def _attend_context(self, x, context):
+        # a call of its own, so that no local keeps the normed input or the
+        # output alive through the feed-forward
+        with annotate(self.xattn_span):
+            return self.attn2(x, context=context)
 
 
 class SpatialTransformer(nn.Module):
@@ -382,6 +408,8 @@ class SpatialTransformer(nn.Module):
             BasicTransformerBlock(inner, heads, dim_head, context_dim,
                                   img_cross_attention=img_cross_attention)
             for _ in range(depth))
+        for block in self.transformer_blocks:
+            block.xattn_span = "unet.xattn"
         self.proj_out = nn.Linear(inner, ch)
 
     def forward(self, x, context=None):
@@ -463,8 +491,10 @@ class UNet3D(nn.Module):
     context [B,L,D], fps) -> [B,T,H,W,Cout] in x's type.
 
     Trace ranges (utils/profiling.py `annotate`): `unet.res`, `unet.spatial`
-    and `unet.temporal` around each block, and `unet.norm` around each of
-    its own norms, which it names here; the other networks' norms open none."""
+    and `unet.temporal` around each block, `unet.xattn` around each spatial
+    transformer's cross-attention (text and image), and `unet.norm` around
+    each of its own norms, which it names here; the other networks' norms
+    open none."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -556,7 +586,10 @@ class UNet3D(nn.Module):
             emb = emb + self.fps_embedding(
                 timestep_embedding(fps_bt, cfg.model_channels).to(dtype))
         emb = emb.reshape(b * t, cfg.time_embed_dim)
-        ctx = None if context is None else context.repeat_interleave(t, dim=0).to(dtype)
+        ctx = None
+        if context is not None:
+            ctx = (frame_context(context, t) if cfg.use_image_attention
+                   else context.repeat_interleave(t, dim=0)).to(dtype)
 
         h = x.reshape(b * t, hh, ww, x.shape[-1]).to(dtype)
         nta = no_temporal_attn

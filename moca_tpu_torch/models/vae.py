@@ -22,6 +22,7 @@ from torch import nn
 from moca_tpu_torch.models.unet3d import Conv2d
 from moca_tpu_torch.ops.norms import GroupNorm32
 from moca_tpu_torch.utils import distributions
+from moca_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,10 +221,12 @@ class AutoencoderKL(nn.Module):
 
     def encode_moments(self, x):
         """[N, H, W, 3] -> (mean, logvar), each [N, h, w, embed_dim] in the
-        parameters' type, logvar clamped to [-30, 20]."""
-        x = x.to(self.quant_conv.weight.dtype)
-        mean, logvar = torch.chunk(self.quant_conv(self.encoder(x)), 2, dim=-1)
-        return mean, torch.clamp(logvar, -30.0, 20.0)
+        parameters' type, logvar clamped to [-30, 20]; inside a `vae.encode`
+        trace range (utils/profiling.py `annotate`)."""
+        with annotate("vae.encode"):
+            x = x.to(self.quant_conv.weight.dtype)
+            mean, logvar = torch.chunk(self.quant_conv(self.encoder(x)), 2, dim=-1)
+            return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def encode(self, x, normal=None, tag: tuple = ("encode",)):
         """The posterior sample drawn as `tag` (ddpm3d.py:458-465), or the

@@ -13,6 +13,11 @@ with a seeded torch.Generator; a test can pass a callable that replays the
 JAX package's key layout (docs/RNG.md) so that both packages consume the
 same numbers.
 
+DynamiCrafter's additions: the v-parameterization in `ddim_step_math`
+(the schedule says which), guidance rescale (`rescale_noise_cfg`) and the
+image latent concatenated to the input of every guided row (`c_concat`) in
+`make_cfg_eps_fn`.
+
 Trace ranges (utils/profiling.py `annotate`): `sampler.ddim` around each
 DDIM step, `sampler.cfg` around each guided noise prediction, the U-Net
 call inside it.
@@ -73,10 +78,23 @@ def expand_context(context: torch.Tensor, rows: int) -> torch.Tensor:
     return context.repeat((rows // bc,) + (1,) * (context.ndim - 1))
 
 
+def rescale_noise_cfg(guided: torch.Tensor, cond: torch.Tensor,
+                      guidance_rescale: float) -> torch.Tensor:
+    """Guidance rescale (Lin et al., section 3.4; DynamiCrafter's
+    samplers/ddim.py): the guided output scaled to the conditional output's
+    standard deviation over every axis but the batch, blended with the
+    unscaled one by `guidance_rescale`."""
+    dims = tuple(range(1, guided.ndim))
+    ratio = cond.std(dim=dims, keepdim=True) / guided.std(dim=dims, keepdim=True)
+    return guidance_rescale * guided * ratio + (1.0 - guidance_rescale) * guided
+
+
 def make_cfg_eps_fn(unet_apply: Callable, context: torch.Tensor,
                     uncond_context: Optional[torch.Tensor], guidance_scale: float,
                     fps=16, uc_type: Optional[str] = None,
-                    temporal_guidance_scale: Optional[float] = None) -> Callable:
+                    temporal_guidance_scale: Optional[float] = None,
+                    guidance_rescale: float = 0.0,
+                    c_concat: Optional[torch.Tensor] = None) -> Callable:
     """eps_fn(x, t_frames) with classifier-free guidance fused into one
     U-Net call. Rows are INTERLEAVED: row 2i = cond_i, row 2i+1 = uncond_i.
 
@@ -84,13 +102,31 @@ def make_cfg_eps_fn(unet_apply: Callable, context: torch.Tensor,
     (ddim.py:303-311). temporal_guidance_scale adds
     s_t * (e_temporal - e_no_temporal_attn) from two more cond-only U-Net
     calls, the second with the temporal transformers skipped
-    (`unet_apply(..., no_temporal_attn=True)`)."""
+    (`unet_apply(..., no_temporal_attn=True)`). guidance_rescale > 0
+    rescales standard CFG's output (`rescale_noise_cfg`). c_concat
+    [B or 1, T, h, w, Cc]: concatenated to the input of every row, the
+    unconditional rows too (the hybrid conditioning, passed to
+    `unet_apply(..., c_concat=...)`)."""
     if uc_type not in (None, "cfg_original", "cfg_ours"):
         raise NotImplementedError(uc_type)
+    if guidance_rescale and (uc_type is not None or temporal_guidance_scale is not None):
+        raise NotImplementedError("guidance_rescale rescales standard CFG only")
+    if c_concat is not None and temporal_guidance_scale is not None:
+        raise NotImplementedError("temporal guidance takes no c_concat")
+
+    def unet(x, t_frames, ctx, rows=1):
+        """The U-Net on x, whose rows are `rows` interleaved copies of each
+        row of the batch."""
+        if c_concat is None:
+            return unet_apply(x, t_frames, ctx, fps)
+        c = expand_context(c_concat, x.shape[0] // rows)
+        c = torch.stack([c] * rows, dim=1).reshape((x.shape[0],) + tuple(c.shape[1:]))
+        return unet_apply(x, t_frames, ctx, fps, c_concat=c)
 
     def combine(e_c, e_u):
         if uc_type is None:
-            return e_u + guidance_scale * (e_c - e_u)
+            guided = e_u + guidance_scale * (e_c - e_u)
+            return rescale_noise_cfg(guided, e_c, guidance_rescale) if guidance_rescale else guided
         if uc_type == "cfg_original":
             return e_c + guidance_scale * (e_c - e_u)
         return e_c + guidance_scale * (e_u - e_c)
@@ -106,7 +142,7 @@ def make_cfg_eps_fn(unet_apply: Callable, context: torch.Tensor,
     def eps_fn(x, t_frames):
         with annotate("sampler.cfg"):
             if uncond_context is None or guidance_scale == 1.0:
-                eps = unet_apply(x, t_frames, expand_context(context, x.shape[0]), fps)
+                eps = unet(x, t_frames, expand_context(context, x.shape[0]))
                 return with_temporal_term(eps, x, t_frames)
             b = x.shape[0]
             x2 = torch.stack([x, x], dim=1).reshape((2 * b,) + tuple(x.shape[1:]))
@@ -115,7 +151,7 @@ def make_cfg_eps_fn(unet_apply: Callable, context: torch.Tensor,
             ctx2 = torch.stack([expand_context(context, b),
                                 expand_context(uncond_context, b)], dim=1)
             ctx2 = ctx2.reshape((2 * b,) + tuple(context.shape[1:]))
-            eps = unet_apply(x2, t2, ctx2, fps).reshape((b, 2) + tuple(x.shape[1:]))
+            eps = unet(x2, t2, ctx2, rows=2).reshape((b, 2) + tuple(x.shape[1:]))
             return with_temporal_term(combine(eps[:, 0], eps[:, 1]), x, t_frames)
 
     return eps_fn
@@ -130,13 +166,21 @@ def _gather(arr: torch.Tensor, index, like: torch.Tensor) -> torch.Tensor:
 def ddim_step_math(sch: DiffusionSchedule, x: torch.Tensor, eps: torch.Tensor, index,
                    noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One DDIM update (p_sample_ddim, ddim.py:332-357) including use_scale.
-    `index` is a scalar or a per-frame index array that broadcasts over x."""
-    a_t = _gather(sch.ddim_alphas, index, x)
+    `index` is a scalar or a per-frame index array that broadcasts over x.
+    `eps` is the model's output: with a v-parameterized schedule, v, from
+    which eps = sqrt(a) v + sqrt(1 - a) x and x0 = sqrt(a) x - sqrt(1 - a) v
+    (DynamiCrafter's predict_eps_from_z_and_v, predict_start_from_z_and_v),
+    so that the step is defined at a = 0, the zero-SNR schedule's last
+    timestep."""
     a_prev = _gather(sch.ddim_alphas_prev, index, x)
     sigma = _gather(sch.ddim_sigmas, index, x)
     sqrt_1ma = _gather(sch.ddim_sqrt_one_minus_alphas, index, x)
 
-    pred_x0 = (x - sqrt_1ma * eps) / torch.sqrt(a_t)
+    if sch.parameterization == "v":
+        sqrt_a = _gather(sch.ddim_sqrt_alphas, index, x)
+        eps, pred_x0 = sqrt_a * eps + sqrt_1ma * x, sqrt_a * x - sqrt_1ma * eps
+    else:
+        pred_x0 = (x - sqrt_1ma * eps) / torch.sqrt(_gather(sch.ddim_alphas, index, x))
     dir_xt = torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0)) * eps
     if sch.use_scale:
         pred_x0 = pred_x0 / _gather(sch.ddim_scale_arr, index, x)

@@ -4,6 +4,14 @@ Port of moca_tpu/schedule.py. The beta / DDIM / `use_scale` arrays are built
 once in float64 NumPy (the same code as the reference) and handed to the
 samplers as float32 tensors on the run's device; the sinusoidal timestep
 embedding is a torch function.
+
+DynamiCrafter's additions (lvdm/models/utils_diffusion.py, ddpm3d.py,
+samplers/ddim.py): the zero-terminal-SNR rescale of the betas, after which
+alpha_bar at the last timestep is exactly 0 (`rescale_zero_terminal_snr`);
+the `uniform_trailing` DDIM spacing, which ends at the last timestep; its
+dynamic rescale, the `use_scale` ramp whose previous-step scale at the first
+DDIM step is that step's own (`dynamic_rescale`); and the v-parameterization,
+carried by the schedule to the DDIM step.
 """
 
 from __future__ import annotations
@@ -35,12 +43,30 @@ def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-
     raise ValueError(f"schedule '{schedule}' unknown.")
 
 
+def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
+    """Betas whose alpha_bar at the last timestep is 0: sqrt(alpha_bar)
+    shifted by its last value and scaled back to its first (Lin et al.,
+    "Common Diffusion Noise Schedules and Sample Steps are Flawed",
+    Algorithm 1; DynamiCrafter's utils_diffusion.py)."""
+    s = np.sqrt(np.cumprod(1.0 - betas, axis=0))
+    s0, s_last = s[0], s[-1]
+    s = (s - s_last) * s0 / (s0 - s_last)
+    alphas_bar = s**2
+    alphas = np.concatenate([alphas_bar[:1], alphas_bar[1:] / alphas_bar[:-1]])
+    return 1.0 - alphas
+
+
 def make_ddim_timesteps(ddim_discr_method: str, num_ddim_timesteps: int,
                         num_ddpm_timesteps: int) -> np.ndarray:
-    """DDIM timestep subset; 'uniform' is linspace(0, T-1, S).round()."""
+    """DDIM timestep subset; 'uniform' is linspace(0, T-1, S).round();
+    'uniform_trailing' (DynamiCrafter) counts back from T in steps of T/S,
+    so that it ends at T - 1: 19, 39, ..., 999 for 50 of 1000."""
     if ddim_discr_method == "uniform":
         return (np.linspace(0, num_ddpm_timesteps - 1, num_ddim_timesteps)
                 .round().astype(np.int64))
+    if ddim_discr_method == "uniform_trailing":
+        c = num_ddpm_timesteps / num_ddim_timesteps
+        return np.flip(np.round(np.arange(num_ddpm_timesteps, 0, -c))).astype(np.int64) - 1
     if ddim_discr_method == "quad":
         steps = (np.linspace(0, np.sqrt(num_ddpm_timesteps * 0.8),
                              num_ddim_timesteps) ** 2).astype(int)
@@ -102,6 +128,11 @@ class DiffusionSchedule:
     ddim_scale_arr_prev: torch.Tensor
     ddim_timesteps_np: np.ndarray
     use_scale: bool = True
+    # "eps" (the U-Net predicts the noise) or "v" (it predicts
+    # sqrt(a) eps - sqrt(1 - a) x0, DynamiCrafter); for "v" the DDIM step
+    # also reads sqrt(alpha_bar) at each DDIM timestep
+    parameterization: str = "eps"
+    ddim_sqrt_alphas: torch.Tensor | None = None
 
     @property
     def num_ddim_steps(self) -> int:
@@ -118,11 +149,22 @@ def make_schedule(ddim_num_steps: int, num_timesteps: int = 1000,
                   ddim_discretize: str = "uniform", ddim_eta: float = 1.0,
                   use_scale: bool = True, scale_a: float = 1.0, scale_b: float = 0.7,
                   mid_step: int = 400, fix_scale_bug: bool = False,
-                  device=None) -> DiffusionSchedule:
-    """The full schedule (defaults = configs/inference_t2v_512_v2.0.yaml)."""
+                  rescale_betas_zero_snr: bool = False, parameterization: str = "eps",
+                  dynamic_rescale: bool = False, device=None) -> DiffusionSchedule:
+    """The full schedule (defaults = configs/inference_t2v_512_v2.0.yaml).
+    DynamiCrafter's: `rescale_betas_zero_snr`, `parameterization="v"`,
+    `ddim_discretize="uniform_trailing"`, and `dynamic_rescale` with
+    `scale_b` its base_scale (use_scale on: the same ramp, and the first DDIM
+    step's previous scale is its own, ddim.py's
+    `cat([ddim_scale_arr[0:1], ddim_scale_arr[:-1]])`)."""
+    if parameterization not in ("eps", "v"):
+        raise ValueError(f"parameterization '{parameterization}' unknown")
     device = resolve_device(device)
+    use_scale = use_scale or dynamic_rescale
     betas = make_beta_schedule(beta_schedule, num_timesteps, linear_start,
                                linear_end, cosine_s)
+    if rescale_betas_zero_snr:
+        betas = rescale_zero_terminal_snr(betas)
     alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
     alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
     ddim_ts = make_ddim_timesteps(ddim_discretize, ddim_num_steps, num_timesteps)
@@ -131,7 +173,8 @@ def make_schedule(ddim_num_steps: int, num_timesteps: int = 1000,
     scale_arr = (make_scale_arr(num_timesteps, scale_a, scale_b, mid_step, fix_scale_bug)
                  if use_scale else np.ones(num_timesteps, dtype=np.float64))
     ddim_scale_arr = scale_arr[ddim_ts]
-    ddim_scale_arr_prev = np.concatenate([scale_arr[:1], scale_arr[ddim_ts[:-1]]])
+    first_prev = ddim_scale_arr[:1] if dynamic_rescale else scale_arr[:1]
+    ddim_scale_arr_prev = np.concatenate([first_prev, scale_arr[ddim_ts[:-1]]])
 
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
     return DiffusionSchedule(
@@ -150,4 +193,6 @@ def make_schedule(ddim_num_steps: int, num_timesteps: int = 1000,
         ddim_scale_arr_prev=f32(ddim_scale_arr_prev),
         ddim_timesteps_np=np.asarray(ddim_ts, np.int64),
         use_scale=use_scale,
+        parameterization=parameterization,
+        ddim_sqrt_alphas=f32(np.sqrt(ddim_alphas)) if parameterization == "v" else None,
     )

@@ -42,15 +42,16 @@ def trace(log_dir: str = "build/moca_tpu_trace"):
 _NO_SPAN = nullcontext()
 
 
-def annotate(name: str):
-    """A named range in the trace, around host code that launches device work.
+def annotate(name: Optional[str]):
+    """A named range in the trace, around host code that launches device work
+    (none where `name` is None).
 
     `torch._C._autograd._profiler_enabled()` is the test, not the Python flag
     `torch.autograd.profiler._is_profiler_enabled`: a profiler started with
     `torch.autograd._enable_profiler` leaves the flag False. With no
     profiler recording, a span costs that one C query: a `record_function`
     would cost its set-up and an operator call even then."""
-    if not torch._C._autograd._profiler_enabled():
+    if name is None or not torch._C._autograd._profiler_enabled():
         return _NO_SPAN
     return torch.profiler.record_function(name)
 

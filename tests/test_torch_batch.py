@@ -247,7 +247,11 @@ def test_batch_cli_help_and_flags_match_jax():
                          env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0 and "--n_samples" in out.stdout, out.stderr
     flags = lambda p: {a.dest: a.default for a in p._actions}
-    assert flags(inf.build_parser()) == flags(jinf.build_parser())
+    # the port's additions for DynamiCrafter's hybrid configs, at defaults
+    # that keep the JAX CLI's sampling
+    added = {"frame_stride": None, "guidance_rescale": 0.0, "timestep_spacing": "uniform"}
+    assert flags(inf.build_parser()) == {**flags(jinf.build_parser()), **added}
+    assert not set(added) & set(flags(jinf.build_parser()))
 
 
 # ---------------------------------------------------------------------------
