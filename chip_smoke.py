@@ -160,6 +160,13 @@ the norms' launch tallies beside K1-K4's, and phase 15 holds every norm shape
 they gave that phase 2b did not; the norms' rows join the JSON line and the
 launch-weighted summary.
 
+Phase 2c does the same for the feed-forward's GEGLU (csrc/geglu.cu) at every
+shape one U-Net call of each benchmark cell gives it (`GEGLU_CALLS`), timed
+beside its bytes bound, the plain version and the library's own chain (F.gelu
+on the gate's view, then the product); `[geglu summary]` sums them over one
+U-Net call, and `[geglu host]` gives the wrapper's host cost a call. Its tally joins the runs' readings, and phase 15 holds its other
+shapes too.
+
 Usage: python3 chip_smoke.py [new_video_length (default 4)]
 """
 
@@ -259,20 +266,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def tallied_kernels():
-    """Every wrapper that keeps a `launches` tally: K1-K4, then the norms."""
+    """Every wrapper that keeps a `launches` tally: K1-K4, the norms, GEGLU."""
     from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.ops import geglu as tg
     from moca_tpu_torch.ops import norms as tn
 
-    return fa.KERNELS + tn.KERNELS
+    return fa.KERNELS + tn.KERNELS + (tg.geglu,)
 
 
 def reset_launch_counts():
     """Empty the tallies of `tallied_kernels()`."""
     from moca_tpu_torch.ops import flash_attention as fa
+    from moca_tpu_torch.ops import geglu as tg
     from moca_tpu_torch.ops import norms as tn
 
     fa.reset_launch_counts()
     tn.reset_launch_counts()
+    tg.reset_launch_counts()
 
 
 @contextlib.contextmanager
@@ -961,23 +971,173 @@ def phase_norms(rows):
 
 
 def phase_norm_shapes(shapes, rows):
-    """Every norm shape the runs gave (by their launch tallies) that phase 2b
-    did not hold: each held to its plain version and timed at NORM_SETTINGS
-    (`check_norm`, a row each), so that every shape a norm kernel received
-    on every path has been held."""
+    """Every norm and GEGLU shape the runs gave (by their launch tallies) that
+    phases 2b and 2c did not hold: each held to its plain version and timed
+    (`check_norm` at NORM_SETTINGS, `check_geglu`; a row each), so that every
+    shape these kernels received on every path has been held."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     held = {(r["name"].split()[0], r["shape"]) for r in rows}
     todo = sorted({(kind, key) for by_kernel in shapes.values()
-                   for kind, by_shape in by_kernel.items() if kind in NORM_SETTINGS
+                   for kind, by_shape in by_kernel.items()
+                   if kind in NORM_SETTINGS or kind == "geglu"
                    for key in by_shape} - held, key=str)
     for kind, key in todo:
-        check_norm(kind, key, NORM_SETTINGS[kind], gen, rows, reps=5)
+        if kind == "geglu":
+            check_geglu(key, gen, rows, reps=5)
+        else:
+            check_norm(kind, key, NORM_SETTINGS[kind], gen, rows, reps=5)
         torch.cuda.empty_cache()
-    print(f"[norms, the runs' other shapes] {len(todo)} shapes held to their plain versions "
-          f"({sum(k == 'group_norm' for k, _ in todo)} GroupNorm, "
-          f"{sum(k == 'layer_norm' for k, _ in todo)} LayerNorm)", flush=True)
+    print(f"[norms and GEGLU, the runs' other shapes] {len(todo)} shapes held to their plain "
+          f"versions ({sum(k == 'group_norm' for k, _ in todo)} GroupNorm, "
+          f"{sum(k == 'layer_norm' for k, _ in todo)} LayerNorm, "
+          f"{sum(k == 'geglu' for k, _ in todo)} GEGLU)", flush=True)
+
+
+# The feed-forward's GEGLU (ops/geglu.py, csrc/geglu.cu) against its plain
+# version, the measure of the norms: the kernel rounds the product once, the
+# plain version the gelu and then the product (bf16: at most one and a half
+# units, 2^-8, apart); in fp32 both compute one expression. The limits of
+# tests/test_torch_cuda.py's GEGLU_TOL, by the launch tally's type tag.
+GEGLU_TOL = {"bf16": 1e-2, "fp16": 2e-3, "fp32": 1e-5}
+GEGLU_REPLACES = "none; stands beside moca_tpu/models/unet3d.py (GEGLU)"
+GEGLU_CHECK_ROWS = 1 << 16
+# (rows, latent) of one U-Net call of each cell: the stream, the i2v clip,
+# DynamiCrafter 1024
+GEGLU_CALLS = {"vc2-fifo-davis": (16, (40, 64)), "vc1-i2v-clip": (2, (40, 64)),
+               "dc1024-i2v-clip": (2, (72, 128))}
+
+
+def check_geglu(key, gen, rows, reps=10):
+    """GEGLU at its launch tally's `key` ((R, F), with the type's tag) against
+    `geglu_plain`, with a planted fault (x and the gate swapped); timed beside
+    the plain version and the library's own chain (`F.gelu` on the gate's
+    chunk view, then the product: the ops the plain version runs, timed
+    alone), with its bytes bound (one read of [R, 2F], one write of [R, F]:
+    6 bytes an output column in bf16, 12 in fp32). Appends a row of the
+    kernel measurements; returns (ms, bound_ms, plain_ms, library_ms). The
+    runs' largest shapes hold 10 GB inputs beside the runs' models: the
+    comparison goes `GEGLU_CHECK_ROWS` rows at a time, and the fault runs on
+    the first of them."""
+    import torch
+    import torch.nn.functional as F
+    from moca_tpu_torch.ops import geglu as tg
+
+    tag = key[-1] if isinstance(key[-1], str) else "bf16"
+    r, f = key[:2]
+    dtype = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp32": torch.float32}[tag]
+    tol = GEGLU_TOL[tag]
+    h = torch.empty((r, 2 * f), device="cuda", dtype=dtype).normal_(0.0, 2.5, generator=gen)
+
+    def rel(o, ref):
+        diff = top = 0.0
+        for i in range(0, ref.shape[0], GEGLU_CHECK_ROWS):
+            a, b = o[i:i + GEGLU_CHECK_ROWS].float(), ref[i:i + GEGLU_CHECK_ROWS].float()
+            if not torch.isfinite(a).all():
+                fail(f"geglu R={r} F={f} {tag}: output not finite")
+            diff, top = max(diff, (a - b).abs().max().item()), max(top, b.abs().max().item())
+        return diff / top
+
+    ref = tg.geglu_plain(h)
+    err = rel(tg.geglu(h), ref)
+    x, gate = h[:GEGLU_CHECK_ROWS].chunk(2, dim=-1)
+    fault = rel(tg.geglu(torch.cat([gate, x], dim=-1)), ref[:GEGLU_CHECK_ROWS])
+    del ref
+    x, gate = h.chunk(2, dim=-1)
+    if not err <= tol < fault:
+        fail(f"geglu R={r} F={f} {tag}: err {err} (tol {tol}), planted fault {fault}")
+    ms = cuda_ms(lambda: tg.geglu(h), reps)
+    plain_ms = cuda_ms(lambda: tg.geglu_plain(h), 3, warmup=1)
+    lib_ms = cuda_ms(lambda: x * F.gelu(gate, approximate="tanh"), reps)
+    bound = 3 * r * f * h.element_size() / H100_BYTES_PER_S * 1e3
+    print(f"[geglu {tag} R={r} F={f}] err {err:.3e} (tol {tol}, planted fault {fault:.3e}) "
+          f"kernel {ms:.4f} ms ({100 * bound / ms:.1f} % of bound) plain {plain_ms:.4f} ms "
+          f"library {lib_ms:.4f} ms bound {bound:.4f} ms (bytes)", flush=True)
+    rows.append(dict(name=f"geglu{'' if tag == 'bf16' else ' ' + tag} R={r} F={f}", route="cuda",
+                     source="moca_tpu_torch/csrc/geglu.cu", replaces=GEGLU_REPLACES, shape=key,
+                     max_rel_err=err, fault_rel_err=fault, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound, bound_by="bytes", library_ms=lib_ms))
+    return ms, bound, plain_ms, lib_ms
+
+
+def geglu_host_us(rounds=3, reps=2000):
+    """Host microseconds a call of `geglu` and of `geglu_plain` (chunk,
+    F.gelu, the product), beside a PyTorch `x + 1`, on one small bf16 input
+    ([128, 2 x 640]) so that the card waits for the host: the wall time of
+    `reps` calls issued back to back, one sync after them; the median of
+    `rounds` rounds in turn."""
+    import statistics
+
+    import torch
+    from moca_tpu_torch.ops import geglu as tg
+
+    h = _randn((128, 1280), torch.Generator(device="cuda").manual_seed(SEED))
+    fns = {"geglu": lambda: tg.geglu(h), "geglu_plain": lambda: tg.geglu_plain(h),
+           "add": lambda: h + 1}
+    times = {name: [] for name in fns}
+    with torch.inference_mode():
+        for _ in range(rounds):
+            for name, fn in fns.items():
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) / reps * 1e6)
+    us = {name: statistics.median(t) for name, t in times.items()}
+    print(f"[geglu host] us a call, median of {rounds} rounds of {reps} "
+          f"{json.dumps({k: round(v, 2) for k, v in us.items()})}", flush=True)
+    tg.reset_launch_counts()
+    return us
+
+
+def phase_geglu(rows):
+    """The shipped U-Net (random bf16 weights) at one call of each cell's
+    shape (`GEGLU_CALLS`): the GEGLU shapes its tally gives, one launch a
+    feed-forward (33 a call), each held to its plain version and timed
+    (`check_geglu`, a row each); the sums over one U-Net call, each shape
+    weighted by its launches, printed as `[geglu summary, a U-Net call]`
+    (ms, bound_ms, plain_ms, library_ms); then the wrapper's host cost
+    (`geglu_host_us`)."""
+    import torch
+    from moca_tpu_torch.models.unet3d import UNet3D, UNetConfig
+    from moca_tpu_torch.ops import geglu as tg
+
+    with torch.device("cuda"):
+        unet = UNet3D(UNetConfig()).to(torch.bfloat16).eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    summary, held = {}, {}
+    for cell, (n_rows, lat) in GEGLU_CALLS.items():
+        x = _randn((n_rows, 16) + lat + (4,), gen)
+        tg.reset_launch_counts()
+        with torch.inference_mode():
+            unet(x, torch.full((n_rows, 16), 500, device="cuda", dtype=torch.long),
+                 _randn((n_rows, 154, 1024), gen), fps=16)
+        torch.cuda.synchronize()
+        launched = dict(tg.geglu.launches)
+        if sum(launched.values()) != 33:
+            fail(f"geglu at {cell}'s U-Net call: {launched}, not one launch a feed-forward (33)")
+        total = summary[cell] = dict.fromkeys(("calls", "ms", "bound_ms", "plain_ms",
+                                               "library_ms"), 0.0)
+        for key, n in sorted(launched.items()):
+            if key not in held:
+                held[key] = check_geglu(key, gen, rows)
+                torch.cuda.empty_cache()
+            total["calls"] += n
+            for field, t in zip(("ms", "bound_ms", "plain_ms", "library_ms"), held[key]):
+                total[field] += n * t
+        total["bound_share"] = total["bound_ms"] / total["ms"]
+        del x
+    del unet
+    torch.cuda.empty_cache()
+    print(f"[geglu summary, a U-Net call] "
+          f"{json.dumps({k: {f: round(v, 4) for f, v in t.items()} for k, t in summary.items()})}",
+          flush=True)
+    geglu_host_us()
+    return summary
 
 
 def unet_shapes(rows: int, ctx: int, lat=(40, 64), f=16):
@@ -3019,6 +3179,7 @@ def main(argv):
     rows = timed("phase 2, kernels against their plain versions", phase_kernels, rows_fifo, 2,
                  154, 77)
     timed("phase 2b, norms against their plain versions", phase_norms, rows)
+    timed("phase 2c, GEGLU against its plain version", phase_geglu, rows)
     unet_runs = timed("phase 3, U-Net against its plain path", phase_unet_reference)
     shapes, model, main_frames = timed("phase 4, main path", phase_main_path, new_video_length,
                                        num_partitions)
@@ -3038,7 +3199,8 @@ def main(argv):
     shapes.update(timed("phase 13, mesh", phase_mesh, main_frames, shapes["default"],
                         new_video_length, num_partitions))
     shapes.update(timed("phase 14, user scripts", phase_user_scripts))
-    timed("phase 15, norms at the runs' other shapes", phase_norm_shapes, shapes, rows)
+    timed("phase 15, norms and GEGLU at the runs' other shapes", phase_norm_shapes, shapes,
+          rows)
 
     kernel_summary(shapes, rows)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)

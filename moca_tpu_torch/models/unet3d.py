@@ -39,6 +39,7 @@ from moca_tpu_torch.ops.attention import (
     dot_product_attention, fused_qkv_attention, packed_attention, use_fused_qkv,
     use_packed_tiny,
 )
+from moca_tpu_torch.ops.geglu import geglu
 from moca_tpu_torch.ops.norms import GroupNorm32, LayerNorm32
 from moca_tpu_torch.schedule import timestep_embedding
 from moca_tpu_torch.utils.profiling import annotate
@@ -338,14 +339,15 @@ class CrossAttention(nn.Module):
 
 
 class GEGLU(nn.Module):
+    """proj, then x * gelu_tanh(gate) on its two halves (ops/geglu.py: the
+    kernel on CUDA tensors, the plain chain on CPU tensors)."""
+
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.proj = nn.Linear(dim_in, dim_out * 2)
 
     def forward(self, x):
-        x, gate = self.proj(x).chunk(2, dim=-1)
-        # flax's nn.gelu default (tanh approximation), as the reference port
-        return x * F.gelu(gate, approximate="tanh")
+        return geglu(self.proj(x))
 
 
 class FeedForward(nn.Module):
@@ -365,7 +367,8 @@ class BasicTransformerBlock(nn.Module):
     A causal block masks attn1 and, when it has no context, attn2 too
     (attention.py:206-218 passes the mask to both and then drops the context).
     `xattn_span`: the trace range around the attn2 call, which the spatial
-    transformer names (`unet.xattn`)."""
+    transformer names (`unet.xattn`); the feed-forward runs inside `unet.ff`,
+    its norm outside."""
 
     xattn_span = None
 
@@ -386,13 +389,18 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, x, context=None):
         x = self.attn1(self.norm1(x)) + x
         x = self._attend_context(self.norm2(x), context) + x
-        return self.ff(self.norm3(x)) + x
+        return self._feed_forward(self.norm3(x)) + x
 
     def _attend_context(self, x, context):
         # a call of its own, so that no local keeps the normed input or the
         # output alive through the feed-forward
         with annotate(self.xattn_span):
             return self.attn2(x, context=context)
+
+    def _feed_forward(self, x):
+        # a call of its own, as `_attend_context`
+        with annotate("unet.ff"):
+            return self.ff(x)
 
 
 class SpatialTransformer(nn.Module):
@@ -492,9 +500,9 @@ class UNet3D(nn.Module):
 
     Trace ranges (utils/profiling.py `annotate`): `unet.res`, `unet.spatial`
     and `unet.temporal` around each block, `unet.xattn` around each spatial
-    transformer's cross-attention (text and image), and `unet.norm` around
-    each of its own norms, which it names here; the other networks' norms
-    open none."""
+    transformer's cross-attention (text and image), `unet.ff` around each
+    transformer block's feed-forward, and `unet.norm` around each of its own
+    norms, which it names here; the other networks' norms open none."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()

@@ -49,8 +49,9 @@ adds one to its `launches` tally, keyed by shape (with "fp32" appended for
 the fp32 path), per launch. Each plain
 version rounds where its Pallas body rounds.
 
-The norms' kernels (ops/norms.py, csrc/norms.cu) are built here beside them,
-as one more library.
+The norms' kernels (ops/norms.py, csrc/norms.cu) and the feed-forward's
+GEGLU (ops/geglu.py, csrc/geglu.cu) are built here beside them, as two more
+libraries.
 
 The kernels are compiled from the repository's sources with `nvcc` for
 `sm_90a` (one process per source, started together, then linked into one
@@ -74,11 +75,12 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # library -> its sources; K2's two designs are two units so that they compile
 # in parallel (the span design alone took nvcc longer than any other library);
-# "norms" is the GroupNorm and LayerNorm kernels' library (ops/norms.py loads it)
+# "norms" is the GroupNorm and LayerNorm kernels' library (ops/norms.py loads it),
+# "geglu" the feed-forward's GEGLU (ops/geglu.py)
 _SOURCES = {"flash": ("flash_attention.cu",),
             "packed": ("packed_attention.cu", "packed_span.cu"),
             "fused": ("fused_qkv_attention.cu",), "onepass": ("flash_onepass.cu",),
-            "norms": ("norms.cu",)}
+            "norms": ("norms.cu",), "geglu": ("geglu.cu",)}
 _HEADERS = ("mma.cuh", "hopper.cuh", "flash_hopper.cuh", "attention_f32.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -227,6 +229,7 @@ _ENTRY = {  # library -> {C entry point: its argtypes}
     "norms": {"moca_group_norm": [_p, _p, _p, _p, _p, _i, _i, _ll, _ll, _i, _i, _i, _i, _i,
                                   _ll, _f, _i, _p],
               "moca_layer_norm": [_p, _p, _p, _p, _i, _i, _ll, _i, _i, _f, _p]},
+    "geglu": {"moca_geglu": [_p, _p, _i, _ll, _ll, _i, _i, _i, _p]},
 }
 # K1's and K4's designs, as their libraries number them (`plan` in the .cu):
 # mma.sync, then wgmma (persistent CTAs) with kv tiles of 64 and of 128 rows

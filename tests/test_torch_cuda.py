@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from moca_tpu_torch.ops import flash_attention as tfa
+from moca_tpu_torch.ops import geglu as tg
 from moca_tpu_torch.ops import norms as tn
 
 TOL = 2e-2
@@ -742,3 +743,165 @@ def test_cuda_unet_forward_launches_one_kernel_a_norm(monkeypatch):
     assert torch.isfinite(out.float()).all()
     assert sum(tn.group_norm.launches.values()) == gns
     assert sum(tn.layer_norm.launches.values()) == lns
+
+
+# ---------------------------------------------------------------------------
+# The feed-forward's GEGLU (csrc/geglu.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+# Largest |kernel - plain| over the output, relative to max |plain| (as
+# NORM_TOL): the kernel rounds the product once, the plain version the gelu and
+# then the product, at most one and a half units of the working type apart
+# (2^-8 in bf16, 2^-11 in fp16); in fp32 both compute one expression, a few
+# units of 2^-24 apart. Planted faults read far above it.
+GEGLU_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5}
+
+
+def _ff_shapes(rows, lat, f=16):
+    """[R, F] of every feed-forward of the shipped U-Net at `rows` rows of f
+    frames on an h x w latent: the spatial and temporal transformers of each
+    level (the same tokens), the middle block and the init attention (512
+    channels)."""
+    shapes = {(rows * f * (lat[0] >> lvl) * (lat[1] >> lvl), 4 * ch)
+              for lvl, ch in enumerate((320, 640, 1280))}
+    shapes.add((rows * f * (lat[0] >> 3) * (lat[1] >> 3), 5120))
+    shapes.add((rows * f * lat[0] * lat[1], 2048))
+    return shapes
+
+
+# the stream (16 rows, 40 x 64), the clip (2 rows, 40 x 64), DynamiCrafter
+# 1024 (2 rows, 72 x 128); then the scalar path: F not whole vectors (F = 100)
+_GEGLU_CASES = sorted(_ff_shapes(16, (40, 64)) | _ff_shapes(2, (40, 64))
+                      | _ff_shapes(2, (72, 128))) + [(3000, 100)]
+
+
+def geglu_err(out, ref, chunk=1 << 16):
+    """max |out - ref| / max |ref| over rows, `chunk` rows at a time."""
+    out, ref = out.reshape(-1, out.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    diff = top = 0.0
+    for i in range(0, ref.shape[0], chunk):
+        o, r = out[i:i + chunk].float(), ref[i:i + chunk].float()
+        diff, top = max(diff, (o - r).abs().max().item()), max(top, r.abs().max().item())
+    return diff / top
+
+
+def _geglu_input(r, f, dtype, seed, offset=0):
+    """h [r, 2f] of N(0, 2.5^2) values, `offset` values past a 16-byte boundary."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = torch.empty(r * 2 * f + offset, device="cuda", dtype=dtype)
+    return h[offset:].normal_(0.0, 2.5, generator=gen).view(r, 2 * f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("r,f", _GEGLU_CASES, ids=lambda v: str(v))
+def test_cuda_geglu_matches_plain(r, f, dtype):
+    """Every feed-forward shape of the three cells in each type: the kernel
+    within GEGLU_TOL of `geglu_plain`, one launch tallied under its shape;
+    the same input one value off a 16-byte boundary (one value a thread)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    h = _geglu_input(r, f, dtype, seed=r + f)
+    tg.reset_launch_counts()
+    with torch.inference_mode():
+        out = tg.geglu(h)
+        torch.cuda.synchronize()
+        assert tg.geglu.launches == {(r, f) + tn._DTYPE_TAGS[dtype]: 1}
+        assert out.shape == (r, f) and out.dtype == dtype
+        assert torch.isfinite(out).all()
+        assert geglu_err(out, tg.geglu_plain(h)) <= GEGLU_TOL[dtype]
+        if r * f <= 1 << 27:
+            odd = _geglu_input(r, f, dtype, seed=r + f, offset=1)
+            assert tn._vector(odd.element_size(), f, odd.data_ptr()) == 1
+            assert geglu_err(tg.geglu(odd), tg.geglu_plain(odd)) <= GEGLU_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NORM_DTYPES, ids=["bf16", "fp16", "fp32"])
+@pytest.mark.parametrize("r,f", [(5120, 1280), (2560, 2048), (1280, 2560), (640, 5120),
+                                 (300, 100)], ids=lambda v: str(v))
+def test_cuda_geglu_faults_fail_the_tolerance(r, f, dtype):
+    """x and the gate swapped, and the gate read one column on (both planted
+    through the input), must fail GEGLU_TOL; so must the erf gelu in place of
+    the tanh form, on gates in the tail (-4 to -2.5) where the two part by
+    ~10 % of the gelu (elsewhere by less than a bf16 unit), beside the
+    kernel, which holds it there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    h = _geglu_input(r, f, dtype, seed=7 * f)
+    x, gate = h.chunk(2, dim=-1)
+    ref = tg.geglu_plain(h)
+    with torch.inference_mode():
+        assert geglu_err(tg.geglu(h), ref) <= GEGLU_TOL[dtype]
+        faults = {"x and gate swapped": tg.geglu(torch.cat([gate, x], dim=-1)),
+                  "gate one column on": tg.geglu(torch.cat([x, gate.roll(-1, dims=-1)], dim=-1))}
+        gen = torch.Generator(device="cuda").manual_seed(f)
+        tail = torch.cat([torch.rand((r, f), generator=gen, device="cuda") + 0.5,
+                          torch.rand((r, f), generator=gen, device="cuda") * -1.5 - 2.5],
+                         dim=-1).to(dtype)
+        tail_ref = tg.geglu_plain(tail)
+        assert geglu_err(tg.geglu(tail), tail_ref) <= GEGLU_TOL[dtype]
+        tx, tgate = tail.float().chunk(2, dim=-1)
+        erf = (tx * torch.nn.functional.gelu(tgate)).to(dtype)
+        assert geglu_err(erf, tail_ref) > GEGLU_TOL[dtype], "erf gelu"
+        for what, fault in faults.items():
+            assert geglu_err(fault, ref) > GEGLU_TOL[dtype], what
+
+
+@pytest.mark.cuda
+def test_cuda_geglu_wrapper_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        tg.geglu(torch.zeros(4, 16, device="cuda", dtype=torch.float64))
+    with pytest.raises(ValueError, match="2F"):
+        tg.geglu(torch.zeros(4, 15, device="cuda", dtype=torch.bfloat16))
+    strided = torch.randn(64, 64, device="cuda").to(torch.bfloat16)[:, ::2]  # not contiguous
+    assert geglu_err(tg.geglu(strided), tg.geglu_plain(strided)) <= GEGLU_TOL[torch.bfloat16]
+
+
+# (in_channels, image attention, rows, latent, context tokens) of each cell's
+# U-Net call: the stream, the i2v clip (77 text + 16 image tokens), and
+# DynamiCrafter 1024 (77 + 16 per frame)
+_UNET_CELLS = {"vc2-fifo-davis": (4, False, 16, (40, 64), 154),
+               "vc1-i2v-clip": (4, True, 2, (40, 64), 93),
+               "dc1024-i2v-clip": (8, True, 2, (72, 128), 77 + 16 * 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", list(_UNET_CELLS))
+def test_cuda_unet_forward_launches_one_geglu_a_feed_forward(cell, monkeypatch):
+    """One full-width bf16 U-Net call at each cell's shape: 33 feed-forwards,
+    one GEGLU launch each and no call of `geglu_plain`; the output within
+    5e-2 (relative to its largest value) of the same call with the plain
+    chain in the kernel's place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from moca_tpu_torch.models import unet3d as tunet
+
+    cin, image, rows, (hh, ww), ctx_len = _UNET_CELLS[cell]
+    with torch.device("cuda"):
+        model = tunet.UNet3D(tunet.UNetConfig(in_channels=cin, use_image_attention=image))
+        model = model.to(torch.bfloat16).eval()
+    ffs = sum(isinstance(m, tunet.GEGLU) for m in model.modules())
+    assert ffs == 33
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((rows, 16, hh, ww, cin), generator=gen, device="cuda").to(torch.bfloat16)
+    ctx = torch.randn((rows, ctx_len, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+    ts = torch.full((rows, 16), 500, device="cuda", dtype=torch.long)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain GEGLU ran on the card")
+
+    with torch.inference_mode():
+        with monkeypatch.context() as m:
+            m.setattr(tg, "geglu_plain", refuse)
+            tg.reset_launch_counts()
+            out = model(x, ts, ctx, fps=16)
+            torch.cuda.synchronize()
+            assert sum(tg.geglu.launches.values()) == ffs
+        monkeypatch.setattr(tunet, "geglu", tg.geglu_plain)
+        plain = model(x, ts, ctx, fps=16)
+    assert torch.isfinite(out.float()).all()
+    rel = ((out.float() - plain.float()).abs().max() / plain.float().abs().max()).item()
+    assert rel <= 5e-2, rel

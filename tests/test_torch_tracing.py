@@ -18,8 +18,8 @@ from torch.profiler import ProfilerActivity, profile
 from moca_tpu_torch.models.clip_text import CLIPTextConfig
 from moca_tpu_torch.models.latent_diffusion import init_random_model
 from moca_tpu_torch.models.tokenizer import HashTokenizer
-from moca_tpu_torch.models.unet3d import (ResBlock, SpatialTransformer, TemporalTransformer,
-                                          UNetConfig)
+from moca_tpu_torch.models.unet3d import (BasicTransformerBlock, ResBlock, SpatialTransformer,
+                                          TemporalTransformer, UNetConfig)
 from moca_tpu_torch.models.vae import VAEConfig
 from moca_tpu_torch.ops.norms import GroupNorm32, LayerNorm32
 from moca_tpu_torch.pipelines.moca_video import MoCAVideoPipeline
@@ -31,8 +31,9 @@ H = W = 32  # latent 4x4
 F, N, NEW, T0, STEPS = 4, 2, 2, 6, 3
 UNET = dict(model_channels=32, num_head_channels=8, context_dim=16, channel_mult=(1, 2),
             attention_resolutions=(1, 2), num_res_blocks=1, temporal_length=F)
-SPANS = ("unet.res", "unet.spatial", "unet.temporal", "unet.norm", "sampler.windows",
-         "sampler.cfg", "sampler.moca", "sampler.shift", "sampler.ddim", "timer.sync")
+SPANS = ("unet.res", "unet.spatial", "unet.temporal", "unet.norm", "unet.ff",
+         "sampler.windows", "sampler.cfg", "sampler.moca", "sampler.shift", "sampler.ddim",
+         "timer.sync")
 BLOCKS = ("unet.res", "unet.spatial", "unet.temporal")
 
 
@@ -149,6 +150,22 @@ def test_clip_spans_nest_and_count(model, traced):
             assert up[:2] == ["sampler.cfg", "sampler.ddim"]
         if span == "unet.norm":
             assert "unet" in up
+
+
+@pytest.mark.parametrize("run", ["stream", "clip"])
+def test_feed_forward_spans_one_a_block(model, traced, run):
+    """`unet.ff` once a transformer block a U-Net call, inside its spatial or
+    temporal transformer; the block's norm runs before it opens, so no
+    `unet.norm` lies inside one."""
+    _, spans = traced[run]
+    blocks = _modules(model.unet, BasicTransformerBlock)
+    assert blocks and _per_call(spans, "unet.ff") == [blocks] * Counter(
+        s for s, _, _ in spans)["unet"]
+    for span, up, _ in spans:
+        if span == "unet.ff":
+            assert up[0] in ("unet.spatial", "unet.temporal") and "unet" in up, up
+        if span == "unet.norm":
+            assert "unet.ff" not in up
 
 
 def test_only_the_unet_names_its_norms(model):
