@@ -183,13 +183,12 @@ import subprocess
 import sys
 import time
 
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM
-# The fastest unit that keeps fp32 accuracy, the fp32 paths' yardstick
-# whatever implements them: 3xTF32 on the tensor cores, the dense TF32 peak
-# over three products (H100 SXM). The FP32 FFMA peak outside the tensor
-# cores, 67e12, is 2.5x lower.
-H100_FP32_FLOPS = 494.7e12 / 3
-H100_BYTES_PER_S = 3.35e12
+# the card's peaks (bf16 tensor cores, 3xTF32 for the fp32 paths, HBM3) and the
+# kernel categories of a trace: the benchmark's own
+from benchmark.flops import H100_BF16_FLOPS, H100_BYTES_PER_S, H100_FP32_FLOPS
+from benchmark.trace import category
+from moca_tpu_torch.ops import cuda_libs
+
 # Largest relative L2 error of one output row (the 64-vector of one query and
 # head) against the plain version. Kernel and plain version round the
 # probabilities and the output to bf16 at different points, a few 2^-8
@@ -263,26 +262,6 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def tallied_kernels():
-    """Every wrapper that keeps a `launches` tally: K1-K4, the norms, GEGLU."""
-    from moca_tpu_torch.ops import flash_attention as fa
-    from moca_tpu_torch.ops import geglu as tg
-    from moca_tpu_torch.ops import norms as tn
-
-    return fa.KERNELS + tn.KERNELS + (tg.geglu,)
-
-
-def reset_launch_counts():
-    """Empty the tallies of `tallied_kernels()`."""
-    from moca_tpu_torch.ops import flash_attention as fa
-    from moca_tpu_torch.ops import geglu as tg
-    from moca_tpu_torch.ops import norms as tn
-
-    fa.reset_launch_counts()
-    tn.reset_launch_counts()
-    tg.reset_launch_counts()
 
 
 @contextlib.contextmanager
@@ -415,8 +394,6 @@ def fp32_launches(by_shape) -> int:
 
 
 def phase_build():
-    from moca_tpu_torch.ops import flash_attention as fa
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -424,20 +401,20 @@ def phase_build():
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0], flush=True)
     t0 = time.perf_counter()
-    fa.build_kernels()
-    for name in fa._SOURCES:
-        fa.load_library(name)
+    cuda_libs.build_kernels()
+    for name in cuda_libs.LIBRARIES:
+        cuda_libs.load_library(name)
+    nvcc_s = {k: round(v["seconds"], 1) for k, v in cuda_libs.build_log.items()}
     print(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc: {json.dumps({k: round(v['seconds'], 1) for k, v in fa.build_log.items()})})",
-          flush=True)
-    for name, log in fa.build_log.items():
+          f"(nvcc: {json.dumps(nvcc_s)})", flush=True)
+    for name, log in cuda_libs.build_log.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", log["ptxas"])]
         spills = [line.strip() for line in log["ptxas"].splitlines()
                   if "spill" in line and not line.strip().startswith("0 bytes stack frame, 0 bytes spill")]
         print(f"[ptxas {name}] {len(regs)} kernels, registers {min(regs, default=0)}-"
               f"{max(regs, default=0)}, spills: {spills or 'none'}", flush=True)
-    if "fused" in fa.build_log:  # K3 by instantiation: its fp32 path and its bf16 path
-        for kernel, regs, spill in ptxas_kernels(fa.build_log["fused"]["ptxas"]):
+    if "fused" in cuda_libs.build_log:  # K3 by instantiation: its fp32 path and its bf16 path
+        for kernel, regs, spill in ptxas_kernels(cuda_libs.build_log["fused"]["ptxas"]):
             print(f"[ptxas fused] {kernel}: {regs} registers, {spill}", flush=True)
 
 
@@ -682,14 +659,10 @@ def packed_launch_floor(gen):
     through K2's library (its ctypes route), and K2 itself through
     `packed_attention` at one [1, 16, 64] row (the wrapper's checks added),
     the floor under K2's smallest rows."""
-    import ctypes
-
     import torch
     from moca_tpu_torch.ops import flash_attention as fa
 
-    lib, _ = fa._entry("packed")
-    empty = lib.moca_packed_empty
-    empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+    empty = cuda_libs.load_library("packed").moca_packed_empty
     stream = torch.cuda.current_stream().cuda_stream
     empty_ms = cuda_ms(lambda: empty(stream), 200, warmup=5)
     q = _randn((1, 16, 64), gen)
@@ -796,18 +769,18 @@ def norm_calls(unet, rows: int, lat=(40, 64), f: int = 16, ctx: int = 154):
     from moca_tpu_torch.ops import norms as tn
 
     settings = collections.defaultdict(set)
-    calls = {fn.__name__: collections.Counter() for fn in tn.KERNELS}
+    calls = {fn.__name__: collections.Counter() for fn in (tn.group_norm, tn.layer_norm)}
     copied = [0]
 
     def hook(mod, args):
         x = args[0]
         copied[0] += not x.is_contiguous()
-        tag = tn._DTYPE_TAGS[x.dtype]
         if isinstance(mod, tn.GroupNorm32):
             n, c = x.shape[0], x.shape[-1]
-            kind, key, act = "group_norm", (n, x.numel() // (n * c), c, mod.groups) + tag, mod.act
+            kind, shape, act = "group_norm", (n, x.numel() // (n * c), c, mod.groups), mod.act
         else:
-            kind, key, act = "layer_norm", (x.numel() // x.shape[-1], x.shape[-1]) + tag, None
+            kind, shape, act = "layer_norm", (x.numel() // x.shape[-1], x.shape[-1]), None
+        key = cuda_libs.launch_key(shape, x.dtype)
         settings[kind, key].add((mod.eps, act))
         calls[kind][key] += 1
 
@@ -815,14 +788,14 @@ def norm_calls(unet, rows: int, lat=(40, 64), f: int = 16, ctx: int = 154):
                if isinstance(m, (tn.GroupNorm32, tn.LayerNorm32))]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = _randn((rows, f) + tuple(lat) + (4,), gen)
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     with torch.inference_mode():
         unet(x, torch.full((rows, f), 500, device="cuda", dtype=torch.long),
              _randn((rows, ctx, 1024), gen), fps=16)
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
-    launched = {fn.__name__: dict(fn.launches) for fn in tn.KERNELS}
+    launched = {fn.__name__: dict(fn.launches) for fn in (tn.group_norm, tn.layer_norm)}
     return settings, {k: dict(v) for k, v in calls.items()}, launched, copied[0]
 
 
@@ -927,7 +900,7 @@ def norm_host_us(rounds=3, reps=2000):
           f"{json.dumps({k: round(v, 2) for k, v in us.items()})}; against x + 1: "
           f"{json.dumps({k: round(v / us['add'], 2) for k, v in us.items() if k != 'add'})}",
           flush=True)
-    tn.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     return us
 
 
@@ -1090,7 +1063,7 @@ def geglu_host_us(rounds=3, reps=2000):
     us = {name: statistics.median(t) for name, t in times.items()}
     print(f"[geglu host] us a call, median of {rounds} rounds of {reps} "
           f"{json.dumps({k: round(v, 2) for k, v in us.items()})}", flush=True)
-    tg.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     return us
 
 
@@ -1112,7 +1085,7 @@ def phase_geglu(rows):
     summary, held = {}, {}
     for cell, (n_rows, lat) in GEGLU_CALLS.items():
         x = _randn((n_rows, 16) + lat + (4,), gen)
-        tg.reset_launch_counts()
+        cuda_libs.reset_launch_counts()
         with torch.inference_mode():
             unet(x, torch.full((n_rows, 16), 500, device="cuda", dtype=torch.long),
                  _randn((n_rows, 154, 1024), gen), fps=16)
@@ -1390,13 +1363,13 @@ def check_unet_reference(label, ctx_len, switched, expect, dtype=None, **cfg_kw)
     with torch.inference_mode():
         ref = ref_model(x, ts, ctx, fps=10)
         gpu_model = ref_model.to("cuda", dtype)
-        reset_launch_counts()
+        cuda_libs.reset_launch_counts()
         with switches_on() if switched else contextlib.nullcontext():
             out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
     if not math.isfinite(rel) or rel > tol:
         fail(f"U-Net {label} GPU vs CPU reference: relative max err {rel} > {tol}")
-    launched = {fn.__name__: dict(fn.launches) for fn in tallied_kernels()}
+    launched = {fn.__name__: dict(fn.launches) for fn in cuda_libs.TALLIED}
     missing = [name for name in expect
                if not (fp32_launches(launched[name]) if fp32 else launched[name])]
     if missing:
@@ -1482,7 +1455,7 @@ def phase_main_path(new_video_length: int, num_partitions: int):
                                  new_video_length=new_video_length, guidance_scale=12.0)
         torch.cuda.reset_peak_memory_stats()
         with switches_on() if run == "switched" else contextlib.nullcontext():
-            reset_launch_counts()
+            cuda_libs.reset_launch_counts()
             t0 = time.perf_counter()
             frames = pipe(**main_path_call())
             total = time.perf_counter() - t0
@@ -1511,7 +1484,7 @@ def _check_frames(label, frames, iters):
 def _launches(label, expect):
     """{kernel: {shape: n}} since the last reset; fails unless every kernel
     in `expect` launched."""
-    launched = {fn.__name__: dict(fn.launches) for fn in tallied_kernels()}
+    launched = {fn.__name__: dict(fn.launches) for fn in cuda_libs.TALLIED}
     counts = {name: sum(by_shape.values()) for name, by_shape in launched.items()}
     for name in expect:
         if counts[name] <= 0:
@@ -1638,7 +1611,7 @@ def phase_davis(model, new_video_length: int, num_partitions: int):
                              num_partitions=num_partitions,
                              new_video_length=new_video_length, guidance_scale=12.0)
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     t0 = time.perf_counter()
     video = pipe("object bear cat.", normal=normal, cond_image=cond, gamma=0.5, height=320,
                  width=512, clean_latents=clean, masks=masks, davis_frames=frames)
@@ -1718,7 +1691,7 @@ def phase_open_vocab(model, new_video_length: int, num_partitions: int):
     _check_frames("open-vocab baseline", pipe("a cat surfing", **call), iters)
     baseline = (pipe.timings["fifo_iteration"] + pipe.timings["decode"]) / iters
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     with profile_env(), contextlib.redirect_stdout(out):
@@ -1843,7 +1816,7 @@ def phase_t2v_batch(model):
                              guidance_scale=12.0, fps=28)
     root = os.path.join("build", "smoke_t2v")
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     written, seconds = run_batch_cli(pipe, ["--bs", "4"], T2V_PROMPTS, os.path.join(root, "bs4"))
     launched = {"t2v_bs4": _launches("t2v bs4", ("flash_attention", "packed_attention"))}
     stages, peak = dict(pipe.timings), torch.cuda.max_memory_allocated() / 2**30
@@ -1855,7 +1828,7 @@ def phase_t2v_batch(model):
           f"{seconds:.2f} s ({seconds / 4:.2f} s a prompt); stages "
           f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; peak memory "
           f"{peak:.1f} GiB", flush=True)
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     single, seconds1 = run_batch_cli(pipe, ["--bs", "1"], T2V_PROMPTS[:2],
                                      os.path.join(root, "bs1"))
     launched["t2v_bs1"] = _launches("t2v bs1", ("flash_attention", "packed_attention"))
@@ -1890,7 +1863,7 @@ def phase_t2v_variants(model):
             ("freeinit", {}, dict(iterations=2)))
     for run, build, call in runs:
         pipe = T2VPipeline.build(model, tok, num_steps=10, guidance_scale=12.0, fps=28, **build)
-        reset_launch_counts()
+        cuda_libs.reset_launch_counts()
         t0 = time.perf_counter()
         if run == "freeinit":
             video = pipe.sample_with_freeinit(prompt, seed=SEED, **size, **call)
@@ -1907,17 +1880,17 @@ def phase_t2v_variants(model):
             gen = torch.Generator(device="cuda").manual_seed(3)
             x = torch.randn((1, 16, 40, 64, 4), generator=gen, device="cuda")
             ctx = pipe.encode_prompts([prompt])
-            reset_launch_counts()
+            cuda_libs.reset_launch_counts()
             with torch.inference_mode():
                 model.apply_unet(x, torch.full((1, 16), 500, device="cuda"), ctx, 28,
                                  no_temporal_attn=True)
-            counts = {fn.__name__: sum(fn.launches.values()) for fn in tallied_kernels()}
+            counts = {fn.__name__: sum(fn.launches.values()) for fn in cuda_libs.TALLIED}
             if counts["packed_attention"] or not counts["flash_attention"]:
                 fail(f"a forward with no_temporal_attn launched {counts}")
             print(f"[t2v no_temporal_attn] one forward launches {json.dumps(counts)}", flush=True)
     pipe = T2VPipeline.build(model, tok, num_steps=0, guidance_scale=12.0, fps=28,
                              num_timesteps=DDPM_STEPS)
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     written, seconds = run_batch_cli(pipe, ["--ddim_steps", "0", "--height", "128",
                                             "--width", "128"], T2V_PROMPTS[:1],
                                      os.path.join("build", "smoke_t2v", "ddpm"))
@@ -1946,7 +1919,7 @@ def phase_moca_batched(model, num_partitions: int, new_video_length: int):
     prompts = [T2V_PROMPTS[0], T2V_PROMPTS[2]]
     iters = new_video_length + pipe.num_inference_steps - 16
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     t0 = time.perf_counter()
     streams = pipe(prompts, **call)
     total = time.perf_counter() - t0
@@ -1960,7 +1933,7 @@ def phase_moca_batched(model, num_partitions: int, new_video_length: int):
           f"({steady / 2:.3f} s a frame); stages "
           f"{json.dumps({k: round(v, 3) for k, v in t.items()})}; peak memory {peak:.1f} GiB",
           flush=True)
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     single = pipe(prompts[0], **call)
     launched["moca_b1"] = _launches("moca B=1", ("flash_attention", "packed_attention"))
     _check_frames("MoCA B=1", single, iters)
@@ -2016,7 +1989,7 @@ def check_unet_i2v():
         ref = ref_model(x, ts, ctx, fps=10)
         change = rel_max(ref_model(x, ts, zeroed, fps=10), ref)
         gpu_model = ref_model.to("cuda", torch.bfloat16)
-        reset_launch_counts()
+        cuda_libs.reset_launch_counts()
         out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
         _launches("unet reference, i2v", ("flash_attention", "packed_attention"))
         fault = gpu_model(x.cuda(), ts.cuda(), zeroed.cuda(), fps=10).float().cpu()
@@ -2123,7 +2096,7 @@ def phase_i2v():
     pipe = T2VPipeline.build(model, HashTokenizer(), num_steps=10, guidance_scale=12.0, fps=28)
     names = [f"{i}.mp4" for i in range(len(paths))]
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     written, seconds = run_batch_cli(
         pipe, ["--mode", "i2v", "--cond_input", cond_dir, "--ddim_steps", "10"],
         T2V_PROMPTS[:2], os.path.join(root, "out"), names)
@@ -2332,7 +2305,7 @@ def phase_eval_sweep(model):
         "--clip_vision_ckpt", paths["visual"], "--lpips_ckpt", paths["lpips"],
         "--i3d_ckpt", paths["i3d"]])
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     t0 = time.perf_counter()
     summary = eval_sweep.main(args, pipe=pipe)
     seconds = time.perf_counter() - t0
@@ -2440,13 +2413,13 @@ def _mesh_rank(rank, new_video_length, num_partitions):
                              guidance_scale=12.0, mesh=mesh)
     call = dict(main_path_call(), latents_dir=os.path.join(MESH_DIR, "latents"))
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     dist.barrier()
     t0 = time.perf_counter()
     frames = np.stack(pipe(**call))
     total = time.perf_counter() - t0
     launched = {fn.__name__: {json.dumps(sh): n for sh, n in fn.launches.items()}
-                for fn in tallied_kernels()}
+                for fn in cuda_libs.TALLIED}
     peak = torch.cuda.max_memory_allocated() / 2**30
     stages = dict(pipe.timings)
 
@@ -2501,14 +2474,14 @@ def _mesh_cli(port, num_partitions):
 
     cli.load_pipeline = load
     os.chdir(root)
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     t0 = time.perf_counter()
     cli.main(cli.build_parser().parse_args([
         "--prompt_file", prompts, "--output_dir", "out", "--mesh", "1,1", "-n",
         str(num_partitions), "-l", "2", "--no_save_frames"]))
     seen.update(seconds=time.perf_counter() - t0, group_after=dist.is_initialized(),
                 launched={fn.__name__: {json.dumps(sh): n for sh, n in fn.launches.items()}
-                          for fn in tallied_kernels()},
+                          for fn in cuda_libs.TALLIED},
                 video=os.path.exists(os.path.join(
                     root, "out", os.path.splitext(os.path.basename(concept))[0],
                     "a cat surfing.mp4")))
@@ -2678,7 +2651,7 @@ def run_acceptance(ckpt, bpe):
             "--new_video_length", str(ACCEPT_NEW_FRAMES), "--skip_oracles",
             "--reference_frames", golden_npz]
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     t0 = time.perf_counter()
     code = acceptance.main(argv)
     total = time.perf_counter() - t0
@@ -2755,7 +2728,7 @@ def run_condition_images(ckpt, bpe):
         f.write("prompt,conditioned_object,conditioned_image_path,conditioned_prompt,gamma\n"
                 f"a red fox,cat,{assets}/cat.png,a cat,0.4\n"
                 f"a blue bird,dog,{assets}/dog.png,a dog,0.6\n")
-    reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     t0 = time.perf_counter()
     written = generate_condition_images.main(
         ["--ckpt_path", ckpt, "--config", SHIPPED_YAML, "--prompts_file", csv,
@@ -2848,16 +2821,6 @@ def phase_user_scripts():
     print(f"[verify drive] on the card: {len(drive['frames'])} frames, mp4 and gif written, "
           f"cached rerun identical, {time.perf_counter() - t0:.1f} s", flush=True)
     return launched
-
-
-_CATEGORIES = (  # kernel-name substrings -> category, first match wins
-    ("flash_fwd", "K1 flash_attention"), ("packed_fwd", "K2 packed_attention"),
-    ("fused_qkv_fwd", "K3 fused_qkv_attention"), ("onepass_fwd", "K4 flash_attention_onepass"),
-    ("fprop", "convolution"), ("conv", "convolution"), ("dgrad", "convolution"),
-    ("gemm", "matmul"), ("nvjet", "matmul"), ("cutlass", "matmul"),
-    ("softmax", "softmax"), ("reduce", "reduction"), ("norm", "reduction"),
-    ("welford", "reduction"), ("cat", "copy"), ("copy", "copy"),
-    ("elementwise", "elementwise"), ("vectorized", "elementwise"))
 
 
 def phase_profile(model, rows: int, ctx_len: int, rows_fp32: int, f: int = 16):
@@ -2967,7 +2930,7 @@ def head160_forward(rows: int, ctx_len: int, f: int = 16):
     with torch.inference_mode():
         errors, first = [], []
         with unet_packed_swapped(packed_held_to_plain(fa.packed_attention, errors, first)):
-            reset_launch_counts()
+            cuda_libs.reset_launch_counts()
             out = unet(x, ts, ctx, fps=10)
             torch.cuda.synchronize()
         launched = _launches("phase 5 num_head_channels=160", ("packed_attention",))
@@ -2996,7 +2959,7 @@ def head160_forward(rows: int, ctx_len: int, f: int = 16):
             fail(f"phase 5 num_head_channels=160: launches {counts}, want {want} (K2 once at "
                  f"each of the {len(temporal)} temporal and init attentions, nothing else)")
         with unet_packed_swapped(fa.packed_attention_plain):
-            reset_launch_counts()
+            cuda_libs.reset_launch_counts()
             twin = unet(x, ts, ctx, fps=10)
             torch.cuda.synchronize()
             if fa.packed_attention.launches:
@@ -3050,7 +3013,7 @@ def fp32_forwards(model, rows: int, ctx_len: int, f: int = 16):
                 ("unet_fp32_full_fused", FUSED_ONLY, ("flash_attention", "fused_qkv_attention"))):
             with switches_on(env):
                 fwd_ms[run] = cuda_ms(lambda: unet(x, ts, ctx, fps=10), reps=2, warmup=1)
-                reset_launch_counts()
+                cuda_libs.reset_launch_counts()
                 out[run] = unet(x, ts, ctx, fps=10)
                 torch.cuda.synchronize()
                 launched[run] = _launches(f"phase 5 {run}", expect)
@@ -3105,8 +3068,7 @@ def profile_forward(model, x, ts, ctx, label):
               f"intervals", flush=True)
     cats = {}
     for name, ms in kernels.items():
-        low = name.lower()
-        cat = next((c for key, c in _CATEGORIES if key in low), "other")
+        cat = category(name)
         cats[cat] = cats.get(cat, 0.0) + ms
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         print(f"[profile {label}]   {cat:26s} {ms:9.2f} ms  {100 * ms / busy:5.1f} %",
@@ -3152,16 +3114,10 @@ def kernel_summary(shapes, rows):
 
 
 def main(argv):
-    try:
-        import torch
-    except ImportError as exc:
-        fail(f"torch is not importable: {exc}")
+    import torch
+
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
-    try:
-        import moca_tpu_torch  # noqa: F401
-    except ImportError as exc:
-        fail(f"the port is not importable from here ({exc}); run from the repository root")
 
     new_video_length = int(argv[0]) if argv else 4
     num_partitions = 4

@@ -45,49 +45,24 @@ design).
 
 Each wrapper runs its plain PyTorch version only when handed CPU tensors. On
 CUDA tensors it launches the kernel or raises — there is no fallback — and
-adds one to its `launches` tally, keyed by shape (with "fp32" appended for
-the fp32 path), per launch. Each plain
-version rounds where its Pallas body rounds.
+adds one to its `launches` tally per launch, keyed by (B, Sq, Sk, H, D) for
+K1 and K4, (N, S, C, heads) for K2 and (N, S, C) for K3 (whose head width is
+always 64), with "fp32" appended for the fp32 path. Each plain version
+rounds where its Pallas body rounds.
 
-The norms' kernels (ops/norms.py, csrc/norms.cu) and the feed-forward's
-GEGLU (ops/geglu.py, csrc/geglu.cu) are built here beside them, as two more
-libraries.
-
-The kernels are compiled from the repository's sources with `nvcc` for
-`sm_90a` (one process per source, started together, then linked into one
-library per kernel) into `build/kernels/` beside the package, at first use,
-and loaded with ctypes.
+The four libraries are built and loaded by ops/cuda_libs.py, which holds
+every CUDA library of the port; its `reset_launch_counts` is re-exported
+here, and `KERNELS` names the four wrappers whose tallies the benchmark reads.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-
 import torch
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-# library -> its sources; K2's two designs are two units so that they compile
-# in parallel (the span design alone took nvcc longer than any other library);
-# "norms" is the GroupNorm and LayerNorm kernels' library (ops/norms.py loads it),
-# "geglu" the feed-forward's GEGLU (ops/geglu.py)
-_SOURCES = {"flash": ("flash_attention.cu",),
-            "packed": ("packed_attention.cu", "packed_span.cu"),
-            "fused": ("fused_qkv_attention.cu",), "onepass": ("flash_onepass.cu",),
-            "norms": ("norms.cu",), "geglu": ("geglu.cu",)}
-_HEADERS = ("mma.cuh", "hopper.cuh", "flash_hopper.cuh", "attention_f32.cuh")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-_LOG2E = 1.4426950408889634
+from moca_tpu_torch.ops.cuda_libs import (  # noqa: F401  (reset_launch_counts: re-exported)
+    load_library, raise_on, reset_launch_counts, tally, tallied)
 
-_libs: dict = {}
-build_log: dict = {}  # name -> {"seconds": .., "ptxas": ..} of the last build
+_LOG2E = 1.4426950408889634
 
 
 # ---------------------------------------------------------------------------
@@ -149,113 +124,25 @@ def fused_qkv_attention_plain(x, wq, wk, wv, wo, bo, heads: int):
 
 
 # ---------------------------------------------------------------------------
-# Build and load
+# Entry points
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the attention kernels are built from source at first use")
-
-
-def _digest(sources) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in tuple(sources) + _HEADERS:
-        h.update((_CSRC / name).read_bytes())
-    return h.hexdigest()[:16]
-
-
-def build_kernels() -> dict:
-    """Compile every kernel library that has no up-to-date file yet.
-
-    One nvcc per source, all started together, then one link per library;
-    returns {name: library path}. A library's file name carries a digest of
-    its sources and flags, so an edited source is rebuilt and a stale
-    library is never loaded."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {name: BUILD_DIR / f"libmoca_{name}_{_digest(srcs)}.so"
-               for name, srcs in _SOURCES.items()}
-    todo = {name: path for name, path in targets.items() if not path.exists()}
-    if todo:
-        nvcc = _nvcc()
-        t0 = time.perf_counter()
-        procs = {}
-        for name, path in todo.items():
-            procs[name] = []
-            for src in _SOURCES[name]:
-                obj = path.with_name(f"{path.stem}.{Path(src).stem}.{os.getpid()}.o")
-                cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj),
-                       str(_CSRC / src)]
-                procs[name].append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                     stderr=subprocess.STDOUT, text=True), obj))
-        failed = []
-        for name, units in procs.items():
-            logs = [proc.communicate()[0] for proc, _ in units]
-            ok = all(proc.returncode == 0 for proc, _ in units)
-            if ok:
-                tmp = todo[name].with_suffix(f".{os.getpid()}.tmp")
-                link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                                       *(str(obj) for _, obj in units)],
-                                      capture_output=True, text=True)
-                logs.append(link.stdout + link.stderr)
-                ok = link.returncode == 0
-                if ok:
-                    os.replace(tmp, todo[name])
-            for _, obj in units:
-                obj.unlink(missing_ok=True)
-            build_log[name] = {"seconds": time.perf_counter() - t0, "ptxas": "\n".join(logs)}
-            if not ok:
-                failed.append(f"{', '.join(_SOURCES[name])}:\n" + "\n".join(logs))
-        if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return targets
-
-
-_p, _i, _f, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-def _with_f32(fn: str, argtypes) -> dict:
-    """K1-K4's entries: `fn` (bfloat16) and "<fn>_f32", which takes the same."""
-    return {fn: argtypes, fn + "_f32": argtypes}
-
-
-_ENTRY = {  # library -> {C entry point: its argtypes}
-    "flash": _with_f32("moca_flash_attention", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
-    "packed": _with_f32("moca_packed_attention", [_p, _p, _p, _p, _ll, _i, _i, _i, _f, _i, _p]),
-    "fused": _with_f32("moca_fused_qkv_attention",
-                       [_p, _p, _p, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _f, _p]),
-    "onepass": _with_f32("moca_flash_onepass", [_p, _p, _p, _p, _i, _i, _i, _i, _i, _f, _i, _p]),
-    "norms": {"moca_group_norm": [_p, _p, _p, _p, _p, _i, _i, _ll, _ll, _i, _i, _i, _i, _i,
-                                  _ll, _f, _i, _p],
-              "moca_layer_norm": [_p, _p, _p, _p, _i, _i, _ll, _i, _i, _f, _p]},
-    "geglu": {"moca_geglu": [_p, _p, _i, _ll, _ll, _i, _i, _i, _p]},
-}
 # K1's and K4's designs, as their libraries number them (`plan` in the .cu):
 # mma.sync, then wgmma (persistent CTAs) with kv tiles of 64 and of 128 rows
 # (64 at D = 128).
 ATTENTION_PATHS = ("mma_sync", "wgmma_kv64", "wgmma_kv128")
 
 
-def load_library(name: str):
-    """Library `name` of `_SOURCES`, built and loaded at first use, with
-    every entry's argtypes set."""
-    if name not in _libs:
-        lib = ctypes.CDLL(str(build_kernels()[name]))
-        for sym, argtypes in _ENTRY[name].items():
-            getattr(lib, sym).argtypes = argtypes
-            getattr(lib, sym).restype = _i
-        lib.moca_cuda_error_string.argtypes = [_i]
-        lib.moca_cuda_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
-    return _libs[name]
+# K1-K4's C entry points (bfloat16; "<entry>_f32" for float32)
+_SYMBOLS = {"flash": "moca_flash_attention", "packed": "moca_packed_attention",
+            "fused": "moca_fused_qkv_attention", "onepass": "moca_flash_onepass"}
 
 
 def _entry(name: str, dtype=torch.bfloat16):
     """The C entry point of K1-K4's library `name` for `dtype` (bfloat16, or
     float32: the `_f32` symbol)."""
     lib = load_library(name)
-    return lib, getattr(lib, next(iter(_ENTRY[name])) + ("_f32" if dtype == torch.float32 else ""))
+    return lib, getattr(lib, _SYMBOLS[name] + ("_f32" if dtype == torch.float32 else ""))
 
 
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -277,17 +164,6 @@ def _check_inputs(q, *rest, what: str):
             raise ValueError(f"{what}: inputs must be 16-byte aligned")
 
 
-def _count(fn, key, dtype):
-    key = key + ("fp32",) if dtype == torch.float32 else key
-    fn.launches[key] = fn.launches.get(key, 0) + 1
-
-
-def _raise_on(lib, err: int, what: str):
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.moca_cuda_error_string(err).decode()}")
-
-
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
@@ -295,10 +171,8 @@ def _raise_on(lib, err: int, what: str):
 def attention_path(name: str, b: int, sq: int, sk: int, h: int, d: int) -> str:
     """The design K1 (`name` "flash") or K4 ("onepass") takes at q [b, sq, h, d]
     over k, v [b, sk, h, d], one of ATTENTION_PATHS: the library's own plan."""
-    lib, entry = _entry(name)
-    fn = getattr(lib, entry.__name__ + "_plan")
-    fn.argtypes, fn.restype = [_i] * 5, _i
-    return ATTENTION_PATHS[fn(b, sq, sk, h, d)]
+    plan = getattr(load_library(name), _SYMBOLS[name] + "_plan")
+    return ATTENTION_PATHS[plan(b, sq, sk, h, d)]
 
 
 def _attention_call(wrapper, name: str, q, k, v, path: str | None = None):
@@ -322,11 +196,12 @@ def _attention_call(wrapper, name: str, q, k, v, path: str | None = None):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, h, d,
              d ** -0.5 * _LOG2E, -1 if path is None else ATTENTION_PATHS.index(path),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, what)
-    _count(wrapper, (b, sq, sk, h, d), q.dtype)
+    raise_on(lib, err, what)
+    tally(wrapper, (b, sq, sk, h, d), q.dtype)
     return o
 
 
+@tallied
 def flash_attention(q, k, v):
     """K1: attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] (D in
     {64, 128}), bfloat16 or float32; softmax in fp32.
@@ -337,6 +212,7 @@ def flash_attention(q, k, v):
     return _attention_call(flash_attention, "flash", q, k, v)
 
 
+@tallied
 def packed_attention(q, k, v, heads: int):
     """K2: self-attention on packed heads [N, S, heads*d], S in {8,16,24,32},
     any d, bfloat16 or float32.
@@ -365,8 +241,8 @@ def _packed_call(q, k, v, heads: int, path: str | None = None):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), n, s, heads, d,
              d ** -0.5 * _LOG2E, -1 if path is None else PACKED_PATHS.index(path),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, "packed_attention")
-    _count(packed_attention, (n, s, c, heads), q.dtype)
+    raise_on(lib, err, "packed_attention")
+    tally(packed_attention, (n, s, c, heads), q.dtype)
     return o
 
 
@@ -387,10 +263,7 @@ PACKED_PATHS = ("head_tile", "span")
 def packed_attention_path(d: int) -> str:
     """The design K2 takes at head width d, one of PACKED_PATHS: the
     library's own plan."""
-    lib, _ = _entry("packed")
-    fn = lib.moca_packed_attention_plan
-    fn.argtypes, fn.restype = [_i], _i
-    return PACKED_PATHS[fn(d)]
+    return PACKED_PATHS[load_library("packed").moca_packed_attention_plan(d)]
 
 
 # K3's head split: a cluster of `split` CTAs shares one tile and splits its
@@ -427,6 +300,7 @@ def fused_qkv_head_split(n: int, s: int, c: int, dtype=torch.bfloat16) -> int:
     return 1
 
 
+@tallied
 def fused_qkv_attention(x, wq, wk, wv, wo, bo, heads: int):
     """K3: to_out(attention(x wq^T, x wk^T, x wv^T)) + bo on x [N, S, C],
     S in {8,16,24,32}, C = heads * 64 <= 1280; weights in nn.Linear's [out, in]
@@ -453,11 +327,12 @@ def fused_qkv_attention(x, wq, wk, wv, wo, bo, heads: int):
     err = fn(x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), wo.data_ptr(),
              bo.data_ptr(), o.data_ptr(), scratch.data_ptr(), n, s, c, split,
              64 ** -0.5 * _LOG2E, torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, err, "fused_qkv_attention")
-    _count(fused_qkv_attention, (n, s, c), x.dtype)
+    raise_on(lib, err, "fused_qkv_attention")
+    tally(fused_qkv_attention, (n, s, c), x.dtype)
     return o
 
 
+@tallied
 def flash_attention_onepass(q, k, v):
     """K4: attention of q [B, Sq, H, D] over k, v [B, Sk, H, D] (D in
     {64, 128}), bfloat16 or float32, with the row max taken over the whole
@@ -471,16 +346,3 @@ def flash_attention_onepass(q, k, v):
 
 
 KERNELS = (flash_attention, packed_attention, fused_qkv_attention, flash_attention_onepass)
-
-
-def reset_launch_counts():
-    """Empty every wrapper's launch tally, {shape: launches} with shape
-    (B, Sq, Sk, H, D) for K1 and K4, (N, S, C, heads) for K2 and (N, S, C)
-    for K3 (whose head width is always 64); a launch of the fp32 path has
-    "fp32" appended to its shape."""
-    for fn in KERNELS:
-        fn.launches = {}
-
-
-reset_launch_counts()
-

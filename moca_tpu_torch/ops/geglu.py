@@ -5,9 +5,9 @@ Port of the reference's `GEGLU` (moca_tpu/models/unet3d.py:410-420), whose
 `nn.gelu` is the tanh approximation. `geglu_plain` is the arithmetic as the
 port's `GEGLU` ran it in plain PyTorch (`chunk`, `F.gelu(approximate="tanh")`,
 the product), which CPU tensors take; `geglu` launches the hand-written CUDA
-kernel (csrc/geglu.cu, the "geglu" library of ops/flash_attention.py's build)
-on CUDA tensors: there is no fallback. The kernel reads h once and writes y
-once, and keeps the gelu and the product in float32, rounded once to h's type
+kernel (csrc/geglu.cu, the "geglu" library of ops/cuda_libs.py) on CUDA
+tensors: there is no fallback. The kernel reads h once and writes y once,
+and keeps the gelu and the product in float32, rounded once to h's type
 (bfloat16, float16 or float32; the plain version rounds the gelu to h's type
 before the product). Each call adds one to `geglu.launches`, keyed by (R, F)
 (with "fp32" or "fp16" appended for those types).
@@ -20,8 +20,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from moca_tpu_torch.ops import flash_attention as fa
-from moca_tpu_torch.ops.norms import KERNEL_DTYPES, _tally, _vector
+from moca_tpu_torch.ops.cuda_libs import (DTYPE_CODES, load_library, raise_on, tally,
+                                          tallied, vector)
 
 GEGLU_THREADS = 256      # a block's threads (the .cu's kMaxThreads)
 GEGLU_BLOCKS = 8 * 132   # blocks a launch aims for: 8 of 256 threads fill a streaming
@@ -50,6 +50,7 @@ def geglu_plan(r: int, f: int, vec: int):
     return GEGLU_THREADS, max(1, min(GEGLU_BLOCKS, -(-vectors // per_block)))
 
 
+@tallied
 def geglu(h):
     """x * gelu_tanh(gate) on the halves of h [..., 2F] (`geglu_plain`'s
     function).
@@ -57,7 +58,7 @@ def geglu(h):
     CPU tensors take `geglu_plain`; CUDA tensors launch the kernel."""
     if h.device.type == "cpu":
         return geglu_plain(h)
-    code = KERNEL_DTYPES.get(h.dtype)
+    code = DTYPE_CODES.get(h.dtype)
     if code is None:
         raise ValueError(f"geglu: the kernel takes bfloat16, float16 or float32, got {h.dtype}")
     if h.get_device() < 0:
@@ -71,20 +72,11 @@ def geglu(h):
     if y.numel() == 0:
         return y
     r = y.numel() // f
-    vec = _vector(h.element_size(), f, h.data_ptr(), y.data_ptr())
+    vec = vector(h.element_size(), f, h.data_ptr(), y.data_ptr())
     threads, blocks = geglu_plan(r, f, vec)
-    lib = fa.load_library("geglu")
+    lib = load_library("geglu")
     err = lib.moca_geglu(h.data_ptr(), y.data_ptr(), code, r, f, vec, blocks, threads,
                          torch._C._cuda_getCurrentRawStream(h.get_device()))
-    fa._raise_on(lib, err, "geglu")
-    _tally(geglu, (r, f), h.dtype)
+    raise_on(lib, err, "geglu")
+    tally(geglu, (r, f), h.dtype)
     return y
-
-
-def reset_launch_counts():
-    """Empty `geglu.launches`, {(R, F) with "fp32" or "fp16" appended for
-    those types: launches}."""
-    geglu.launches = {}
-
-
-reset_launch_counts()

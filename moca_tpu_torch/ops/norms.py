@@ -9,12 +9,12 @@ checkpoint keys map one to one. A norm whose `span` its owning network set
 
 Each norm is a function with a plain PyTorch version (`group_norm_plain`,
 `layer_norm_plain`), which CPU tensors take, and a hand-written CUDA kernel
-(csrc/norms.cu, built into the "norms" library of ops/flash_attention.py's
-build), which CUDA tensors take: there is no fallback. The kernels read and
-write the input's type (bfloat16, float16 or float32) and keep the
-statistics, the affine map and SiLU in float32, as the plain versions do.
-Each wrapper adds one to its `launches` tally, keyed by shape (with "fp32"
-or "fp16" appended for those types), per call.
+(csrc/norms.cu, the "norms" library of ops/cuda_libs.py), which CUDA tensors
+take: there is no fallback. The kernels read and write the input's type
+(bfloat16, float16 or float32) and keep the statistics, the affine map and
+SiLU in float32, as the plain versions do. Each wrapper adds one to its
+`launches` tally per call, keyed by (N, M, C, groups) for `group_norm` and
+(R, C) for `layer_norm`, with "fp32" or "fp16" appended for those types.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from moca_tpu_torch.ops import flash_attention as fa
+from moca_tpu_torch.ops.cuda_libs import (DTYPE_CODES, load_library, raise_on, tally,
+                                          tallied, vector)
 from moca_tpu_torch.utils.profiling import annotate
 
 # ---------------------------------------------------------------------------
@@ -58,20 +59,12 @@ def layer_norm_plain(x, weight, bias, eps: float):
 # Launch plans (pure arithmetic on shapes; tests/test_torch_models.py models them)
 # ---------------------------------------------------------------------------
 
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 GN_THREADS = 512        # a block's threads, where a row's vectors take fewer
 GN_MAX_THREADS = 1024   # a row's vectors, one thread each, at most
 GN_BLOCKS = 8 * 132     # blocks a launch aims for: 8 a streaming multiprocessor of an H100
 GN_MIN_ROWS = 4         # rows a thread walks in a chunk, at least (where M allows)
 LN_VECTORS = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)  # 16-byte vectors a lane can hold
 LN_MAX_VALUES = 64      # values a lane holds in registers, at most
-
-
-def _vector(itemsize: int, c: int, *ptrs: int) -> int:
-    """Values a thread loads at once: a 16-byte vector where C is whole
-    vectors and every pointer is 16-byte aligned, else one."""
-    vec = 16 // itemsize
-    return vec if c % vec == 0 and all(p % 16 == 0 for p in ptrs) else 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,7 +108,7 @@ def _operands(what: str, x, weight, bias):
     index): the affine in x's type or fp32 (any other type is widened to
     fp32, which keeps every value); raises on what the kernels do not take.
     Cheap checks only: the clip's U-Net makes ~265 of these calls a step."""
-    code = KERNEL_DTYPES.get(x.dtype)
+    code = DTYPE_CODES.get(x.dtype)
     if code is None:
         raise ValueError(f"{what}: the kernel takes bfloat16, float16 or float32, got {x.dtype}")
     if weight is None or bias is None:
@@ -134,14 +127,7 @@ def _operands(what: str, x, weight, bias):
     return x, weight, bias, code, int(weight.dtype is not x.dtype), dev
 
 
-_DTYPE_TAGS = {torch.float32: ("fp32",), torch.float16: ("fp16",), torch.bfloat16: ()}
-
-
-def _tally(fn, key, dtype):
-    key = key + _DTYPE_TAGS[dtype]
-    fn.launches[key] = fn.launches.get(key, 0) + 1
-
-
+@tallied
 def group_norm(x, weight, bias, groups: int, eps: float, act: str | None = None):
     """GroupNorm over channels-last x [N, ..., C] (`group_norm_plain`'s
     function), SiLU where act="silu".
@@ -161,18 +147,19 @@ def group_norm(x, weight, bias, groups: int, eps: float, act: str | None = None)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    vec = _vector(x.element_size(), c, x.data_ptr())
+    vec = vector(x.element_size(), c, x.data_ptr())
     rows, chunks, rpc = group_norm_plan(n, m, c, vec)
     scratch = x.new_empty(n * groups * (chunks + 1) * 2, dtype=torch.float32)
-    lib = fa.load_library("norms")
+    lib = load_library("norms")
     err = lib.moca_group_norm(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
                               scratch.data_ptr(), code, w_f32, n, m, c, groups, vec, rows, chunks,
                               rpc, eps, act == "silu", torch._C._cuda_getCurrentRawStream(dev))
-    fa._raise_on(lib, err, "group_norm")
-    _tally(group_norm, (n, m, c, groups), x.dtype)
+    raise_on(lib, err, "group_norm")
+    tally(group_norm, (n, m, c, groups), x.dtype)
     return y
 
 
+@tallied
 def layer_norm(x, weight, bias, eps: float):
     """LayerNorm over the last axis of x (`layer_norm_plain`'s function).
 
@@ -188,28 +175,14 @@ def layer_norm(x, weight, bias, eps: float):
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
-    vec = _vector(x.element_size(), c, x.data_ptr(), weight.data_ptr(), bias.data_ptr())
-    lib = fa.load_library("norms")
+    vec = vector(x.element_size(), c, x.data_ptr(), weight.data_ptr(), bias.data_ptr())
+    lib = load_library("norms")
     err = lib.moca_layer_norm(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
                               code, w_f32, r, c, layer_norm_vectors(c, vec), eps,
                               torch._C._cuda_getCurrentRawStream(dev))
-    fa._raise_on(lib, err, "layer_norm")
-    _tally(layer_norm, (r, c), x.dtype)
+    raise_on(lib, err, "layer_norm")
+    tally(layer_norm, (r, c), x.dtype)
     return y
-
-
-KERNELS = (group_norm, layer_norm)
-
-
-def reset_launch_counts():
-    """Empty both wrappers' launch tallies, {shape: launches} with shape
-    (N, M, C, groups) for `group_norm` and (R, C) for `layer_norm`, with
-    "fp32" or "fp16" appended for those types."""
-    for fn in KERNELS:
-        fn.launches = {}
-
-
-reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ import math
 import pytest
 import torch
 
+from moca_tpu_torch.ops import cuda_libs
 from moca_tpu_torch.ops import flash_attention as tfa
 from moca_tpu_torch.ops import geglu as tg
 from moca_tpu_torch.ops import norms as tn
@@ -582,7 +583,7 @@ def test_cuda_group_norm_matches_plain(shape, dtype, act, eps):
         pytest.skip("needs an NVIDIA GPU and nvcc")
     c = shape[-1]
     x, w, b = _norm_inputs(shape, c, dtype, seed=len(shape) * 7 + c)
-    tn.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     out = tn.group_norm(x, w, b, _groups(c), eps, act)
     torch.cuda.synchronize()
     assert sum(tn.group_norm.launches.values()) == 1 and out.dtype == dtype
@@ -669,10 +670,10 @@ def test_cuda_layer_norm_matches_plain(r, c, dtype, eps):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     x, w, b = _norm_inputs((r, c), c, dtype, seed=r + c)
-    tn.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     out = tn.layer_norm(x, w, b, eps)
     torch.cuda.synchronize()
-    assert tn.layer_norm.launches == {(r, c) + tn._DTYPE_TAGS[dtype]: 1}
+    assert tn.layer_norm.launches == {cuda_libs.launch_key((r, c), dtype): 1}
     assert torch.isfinite(out.float()).all() and out.dtype == dtype
     assert norm_err(out, tn.layer_norm_plain(x, w, b, eps)) <= NORM_TOL[dtype]
     assert norm_err(tn.layer_norm(x, b, w, eps), tn.layer_norm_plain(x, w, b, eps)) > NORM_TOL[dtype]
@@ -690,7 +691,7 @@ def test_cuda_layer_norm_unaligned_rows():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     x, w, b = _norm_inputs((1, 1 + 256 * 320), 320, torch.bfloat16, seed=8)
     x = x.reshape(-1)[1:].view(256, 320)
-    assert x.data_ptr() % 16 and tn.layer_norm_vectors(320, tn._vector(2, 320, x.data_ptr())) == 0
+    assert x.data_ptr() % 16 and tn.layer_norm_vectors(320, cuda_libs.vector(2, 320, x.data_ptr())) == 0
     assert norm_err(tn.layer_norm(x, w, b, 1e-5), tn.layer_norm_plain(x, w, b, 1e-5)) <= 1e-2
     g = tn.group_norm(x.reshape(4, 64, 320), w, b, 32, 1e-6, "silu")
     assert norm_err(g, tn.group_norm_plain(x.reshape(4, 64, 320), w, b, 32, 1e-6, "silu")) <= 1e-2
@@ -736,7 +737,7 @@ def test_cuda_unet_forward_launches_one_kernel_a_norm(monkeypatch):
     x = torch.randn((1, 16, 16, 16, 4), generator=gen, device="cuda").to(torch.bfloat16)
     ctx = torch.randn((1, 77, 1024), generator=gen, device="cuda").to(torch.bfloat16)
     ts = torch.full((1, 16), 500, device="cuda", dtype=torch.long)
-    tn.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     with torch.inference_mode():
         out = model(x, ts, ctx, fps=16)
     torch.cuda.synchronize()
@@ -802,17 +803,17 @@ def test_cuda_geglu_matches_plain(r, f, dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     h = _geglu_input(r, f, dtype, seed=r + f)
-    tg.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     with torch.inference_mode():
         out = tg.geglu(h)
         torch.cuda.synchronize()
-        assert tg.geglu.launches == {(r, f) + tn._DTYPE_TAGS[dtype]: 1}
+        assert tg.geglu.launches == {cuda_libs.launch_key((r, f), dtype): 1}
         assert out.shape == (r, f) and out.dtype == dtype
         assert torch.isfinite(out).all()
         assert geglu_err(out, tg.geglu_plain(h)) <= GEGLU_TOL[dtype]
         if r * f <= 1 << 27:
             odd = _geglu_input(r, f, dtype, seed=r + f, offset=1)
-            assert tn._vector(odd.element_size(), f, odd.data_ptr()) == 1
+            assert cuda_libs.vector(odd.element_size(), f, odd.data_ptr()) == 1
             assert geglu_err(tg.geglu(odd), tg.geglu_plain(odd)) <= GEGLU_TOL[dtype]
 
 
@@ -896,7 +897,7 @@ def test_cuda_unet_forward_launches_one_geglu_a_feed_forward(cell, monkeypatch):
     with torch.inference_mode():
         with monkeypatch.context() as m:
             m.setattr(tg, "geglu_plain", refuse)
-            tg.reset_launch_counts()
+            cuda_libs.reset_launch_counts()
             out = model(x, ts, ctx, fps=16)
             torch.cuda.synchronize()
             assert sum(tg.geglu.launches.values()) == ffs

@@ -15,8 +15,8 @@ import torch
 
 from moca_tpu.models import unet3d as junet
 from moca_tpu_torch.models import unet3d as tunet
+from moca_tpu_torch.ops import cuda_libs
 from moca_tpu_torch.ops import geglu as tg
-from moca_tpu_torch.ops import norms as tnorms
 
 
 def _jax_geglu(h: np.ndarray, dtype):
@@ -60,7 +60,7 @@ def test_geglu_module_on_cpu_takes_the_plain_path(dtype):
     mod = tunet.GEGLU(32, 48).to(dtype)
     assert [k for k, _ in mod.named_parameters()] == ["proj.weight", "proj.bias"]
     x = torch.randn(3, 10, 32).to(dtype)
-    tg.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     with torch.inference_mode():
         out = mod(x)
         want = tg.geglu_plain(mod.proj(x))
@@ -118,9 +118,9 @@ def test_geglu_plan_at_the_unets_widths(r, f, itemsize):
     """Every F of the U-Net is whole 16-byte vectors: VEC = 16 / itemsize on
     aligned pointers; one value a thread where a pointer is off by one
     value; the grid gives each thread two vectors, up to the card's blocks."""
-    vec = tnorms._vector(itemsize, f, 0, 4096)
+    vec = cuda_libs.vector(itemsize, f, 0, 4096)
     assert vec == 16 // itemsize
-    assert tnorms._vector(itemsize, f, itemsize, 4096) == 1
+    assert cuda_libs.vector(itemsize, f, itemsize, 4096) == 1
     for v in (vec, 1):
         threads, blocks = tg.geglu_plan(r, f, v)
         vectors = r * f // v
@@ -136,7 +136,7 @@ def test_geglu_plan_off_the_vector():
     """F not whole vectors (F % 8 != 0 in bf16, % 4 in fp32) takes one value a
     thread; the plan refuses a width the vectors do not divide."""
     for itemsize, f in ((2, 100), (2, 1284), (4, 6), (2, 7)):
-        assert tnorms._vector(itemsize, f, 0, 0) == 1
+        assert cuda_libs.vector(itemsize, f, 0, 0) == 1
         threads, blocks = tg.geglu_plan(3, f, 1)
         assert blocks == -(-(3 * f) // (threads * tg.GEGLU_IN_FLIGHT))
     with pytest.raises(ValueError, match="whole vectors"):
@@ -147,5 +147,6 @@ def test_geglu_stays_out_of_the_attention_tally():
     """The benchmark's `attn_roofline` reads K1-K4's tallies alone."""
     from moca_tpu_torch.ops import flash_attention as tfa
 
-    assert tg.geglu not in tfa.KERNELS and tg.geglu not in tnorms.KERNELS
-    assert tfa._SOURCES["geglu"] == ("geglu.cu",) and "moca_geglu" in tfa._ENTRY["geglu"]
+    assert tg.geglu not in tfa.KERNELS and tg.geglu in cuda_libs.TALLIED
+    geglu = cuda_libs.LIBRARIES["geglu"]
+    assert geglu.sources == ("geglu.cu",) and "moca_geglu" in geglu.entries

@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 import moca_tpu.ops.flash_attention as jfa
 from moca_tpu.ops.attention import _xla_attention
 from moca_tpu_torch.ops import attention as tatt
+from moca_tpu_torch.ops import cuda_libs
 from moca_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 1e-5
@@ -167,7 +168,7 @@ def test_dispatch_routes_like_the_reference():
 
 
 def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
-    tfa.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     q, k, v = (_t(_rand((2, 16, 2, 64), 50 + i)) for i in range(3))
     np.testing.assert_array_equal(tfa.flash_attention(q, k, v).numpy(),
                                   tfa.attention_plain(q, k, v).numpy())
@@ -180,7 +181,7 @@ def test_cpu_wrappers_run_the_plain_version_and_count_nothing():
     bo = _t(_rand((128,), 65))
     np.testing.assert_array_equal(tfa.fused_qkv_attention(p, *w, bo, 2).numpy(),
                                   tfa.fused_qkv_attention_plain(p, *w, bo, 2).numpy())
-    for fn in tfa.KERNELS:
+    for fn in cuda_libs.TALLIED:
         assert fn.launches == {}
 
 
@@ -204,18 +205,18 @@ def test_kernel_shape_choices_at_the_main_path_and_their_limits():
 
 def test_every_included_header_is_in_the_build_digest():
     """Each `#include "..."` of a kernel source, and of the headers those
-    include, is listed in `_HEADERS`: the library's file name carries a
+    include, is listed in `HEADERS`: the library's file name carries a
     digest of only those files, so an unlisted header could leave a stale
     library loaded after an edit."""
     import re
 
-    seen, todo = set(), [src for srcs in tfa._SOURCES.values() for src in srcs]
+    seen, todo = set(), [src for lib in cuda_libs.LIBRARIES.values() for src in lib.sources]
     while todo:
         name = todo.pop()
         for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"',
-                              (tfa._CSRC / name).read_text(), re.M):
+                              (cuda_libs.CSRC / name).read_text(), re.M):
             if inc not in seen:
                 seen.add(inc)
                 todo.append(inc)
     assert seen, "no kernel source includes a header of the package"
-    assert seen <= set(tfa._HEADERS), sorted(seen - set(tfa._HEADERS))
+    assert seen <= set(cuda_libs.HEADERS), sorted(seen - set(cuda_libs.HEADERS))

@@ -29,6 +29,7 @@ from moca_tpu_torch.models import clip_text as tclip
 from moca_tpu_torch.models import unet3d as tunet
 from moca_tpu_torch.models import vae as tvae
 from moca_tpu_torch.models.convert import clip_from_jax, unet_from_jax, vae_from_jax
+from moca_tpu_torch.ops import cuda_libs
 from moca_tpu_torch.ops import norms as tnorms
 from moca_tpu_torch.ops.norms import GroupNorm32, LayerNorm32
 
@@ -188,7 +189,7 @@ def test_group_norm_plain_keeps_its_results(channels, act, eps, dtype):
     with torch.no_grad():
         norm.weight.copy_(w)
         norm.bias.copy_(b)
-    tnorms.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     with torch.no_grad():
         assert torch.equal(norm(x), want)
     assert tnorms.group_norm.launches == {} and tnorms.layer_norm.launches == {}
@@ -206,7 +207,7 @@ def test_layer_norm_plain_keeps_its_results(dtype):
     with torch.no_grad():
         norm.weight.copy_(w)
         norm.bias.copy_(b)
-    tnorms.reset_launch_counts()
+    cuda_libs.reset_launch_counts()
     with torch.no_grad():
         assert torch.equal(norm(x), want)
     assert tnorms.group_norm.launches == {} and tnorms.layer_norm.launches == {}
@@ -228,7 +229,7 @@ def test_group_norm_plan_covers_every_row(n, m, c, itemsize):
     empty; a block has at most 1024 threads and its statistics fit in shared
     memory; each thread row walks GN_MIN_ROWS rows where the chunk has them;
     the launch comes within a tenth of GN_BLOCKS blocks where the rows allow."""
-    vec = tnorms._vector(itemsize, c, 0)
+    vec = cuda_libs.vector(itemsize, c, 0)
     assert vec == (16 // itemsize if c % (16 // itemsize) == 0 else 1)
     rows, chunks, rpc = tnorms.group_norm_plan(n, m, c, vec)
     assert (chunks - 1) * rpc < m <= chunks * rpc
@@ -236,7 +237,7 @@ def test_group_norm_plan_covers_every_row(n, m, c, itemsize):
     assert c // vec * (rows - 1) < 32 or rows * tnorms.GN_MIN_ROWS <= rpc
     want = min(tnorms.GN_BLOCKS, n * max(1, m // tnorms.GN_MIN_ROWS))
     assert 0.9 * want <= n * chunks <= n * -(-tnorms.GN_BLOCKS // n)
-    assert tnorms._vector(itemsize, c, 8) == 1  # an unaligned input takes one value a thread
+    assert cuda_libs.vector(itemsize, c, 8) == 1  # an unaligned input takes one value a thread
 
 
 def _combine(entries):
@@ -259,7 +260,7 @@ def test_group_norm_kernel_statistics_model(n, m, c):
     groups = 32 if c % 32 == 0 else math.gcd(c, 32)
     gs = c // groups
     x = _rand((n, m, c), 15).astype(np.float64) * 2 + 5
-    vec = tnorms._vector(2, c, 0)
+    vec = cuda_libs.vector(2, c, 0)
     rows, chunks, rpc = tnorms.group_norm_plan(n, m, c, vec)
     assert c // vec * rows >= 32  # a whole warp combines each group
     for i in range(n):
@@ -294,4 +295,4 @@ def test_layer_norm_vectors(c, itemsize, want):
     """16-byte vectors a lane holds for the LayerNorm kernel: the row in
     registers up to 2048 values, the any-row kernel (0) past it or where the
     row is not whole vectors."""
-    assert tnorms.layer_norm_vectors(c, tnorms._vector(itemsize, c, 0)) == want
+    assert tnorms.layer_norm_vectors(c, cuda_libs.vector(itemsize, c, 0)) == want

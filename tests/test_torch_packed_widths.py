@@ -43,6 +43,7 @@ import moca_tpu.ops.attention as jatt
 import moca_tpu.ops.flash_attention as jfa
 from moca_tpu_torch.models import unet3d as tunet
 from moca_tpu_torch.ops import attention as tatt
+from moca_tpu_torch.ops import cuda_libs
 from moca_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 1e-5
@@ -56,7 +57,7 @@ CASES = [(16, 320, 16), (16, 297, 9), (16, 300, 3), (16, 272, 2), (16, 320, 2),
 # (`launch_span`, `span_ldr`, `span_lg`, `stage_span`, `write_span`, `Span`),
 # with the kernel's own constants read from its source.
 
-_CU = (tfa._CSRC / "packed_span.cu").read_text()
+_CU = (cuda_libs.CSRC / "packed_span.cu").read_text()
 SPAN_SLICE, SPAN_MAX_WARPS = (
     int(re.search(rf"constexpr int {name} = (\d+);", _CU).group(1))
     for name in ("SPAN_SLICE", "SPAN_MAX_WARPS"))
