@@ -167,6 +167,17 @@ on the gate's view, then the product); `[geglu summary]` sums them over one
 U-Net call, and `[geglu host]` gives the wrapper's host cost a call. Its tally joins the runs' readings, and phase 15 holds its other
 shapes too.
 
+Phase 2d holds MoCA's window step over every FIFO window (csrc/moca_scan.cu)
+to the per-window loop on the same card and noise (SCAN_TOL, the momentum
+dropped as its planted fault) at the stream's shape and at two rows, and
+times the launch beside its bytes bound, the plain loop and the scan's route
+(the draws and the launch); `[moca summary]` gives the stream's iteration
+and `[moca host]` the host's cost a call. From phase 2d on, every run's
+`_launches` fails unless each FIFO step on a CUDA queue launched the scan
+once and none ran the loop; `[moca scan tally]` at the end lists each
+MoCA run's steps and launches (phase 13's ranks too), and phase 15 holds the
+runs' other scan shapes.
+
 Usage: python3 chip_smoke.py [new_video_length (default 4)]
 """
 
@@ -788,7 +799,7 @@ def norm_calls(unet, rows: int, lat=(40, 64), f: int = 16, ctx: int = 154):
                if isinstance(m, (tn.GroupNorm32, tn.LayerNorm32))]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = _randn((rows, f) + tuple(lat) + (4,), gen)
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     with torch.inference_mode():
         unet(x, torch.full((rows, f), 500, device="cuda", dtype=torch.long),
              _randn((rows, ctx, 1024), gen), fps=16)
@@ -900,7 +911,7 @@ def norm_host_us(rounds=3, reps=2000):
           f"{json.dumps({k: round(v, 2) for k, v in us.items()})}; against x + 1: "
           f"{json.dumps({k: round(v / us['add'], 2) for k, v in us.items() if k != 'add'})}",
           flush=True)
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     return us
 
 
@@ -944,28 +955,32 @@ def phase_norms(rows):
 
 
 def phase_norm_shapes(shapes, rows):
-    """Every norm and GEGLU shape the runs gave (by their launch tallies) that
-    phases 2b and 2c did not hold: each held to its plain version and timed
-    (`check_norm` at NORM_SETTINGS, `check_geglu`; a row each), so that every
-    shape these kernels received on every path has been held."""
+    """Every norm, GEGLU and MoCA scan shape the runs gave (by their launch
+    tallies) that phases 2b-2d did not hold: each held to its plain version
+    and timed (`check_norm` at NORM_SETTINGS, `check_geglu`,
+    `check_moca_scan`; a row each), so that every shape these kernels
+    received on every path has been held."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     held = {(r["name"].split()[0], r["shape"]) for r in rows}
     todo = sorted({(kind, key) for by_kernel in shapes.values()
                    for kind, by_shape in by_kernel.items()
-                   if kind in NORM_SETTINGS or kind == "geglu"
+                   if kind in NORM_SETTINGS or kind in ("geglu", "moca_scan")
                    for key in by_shape} - held, key=str)
     for kind, key in todo:
         if kind == "geglu":
             check_geglu(key, gen, rows, reps=5)
+        elif kind == "moca_scan":
+            check_moca_scan(key, gen, rows, reps=10)
         else:
             check_norm(kind, key, NORM_SETTINGS[kind], gen, rows, reps=5)
         torch.cuda.empty_cache()
-    print(f"[norms and GEGLU, the runs' other shapes] {len(todo)} shapes held to their plain "
-          f"versions ({sum(k == 'group_norm' for k, _ in todo)} GroupNorm, "
+    print(f"[norms, GEGLU and MoCA scan, the runs' other shapes] {len(todo)} shapes held to "
+          f"their plain versions ({sum(k == 'group_norm' for k, _ in todo)} GroupNorm, "
           f"{sum(k == 'layer_norm' for k, _ in todo)} LayerNorm, "
-          f"{sum(k == 'geglu' for k, _ in todo)} GEGLU)", flush=True)
+          f"{sum(k == 'geglu' for k, _ in todo)} GEGLU, "
+          f"{sum(k == 'moca_scan' for k, _ in todo)} MoCA scan)", flush=True)
 
 
 # The feed-forward's GEGLU (ops/geglu.py, csrc/geglu.cu) against its plain
@@ -1063,7 +1078,7 @@ def geglu_host_us(rounds=3, reps=2000):
     us = {name: statistics.median(t) for name, t in times.items()}
     print(f"[geglu host] us a call, median of {rounds} rounds of {reps} "
           f"{json.dumps({k: round(v, 2) for k, v in us.items()})}", flush=True)
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     return us
 
 
@@ -1085,7 +1100,7 @@ def phase_geglu(rows):
     summary, held = {}, {}
     for cell, (n_rows, lat) in GEGLU_CALLS.items():
         x = _randn((n_rows, 16) + lat + (4,), gen)
-        cuda_libs.reset_launch_counts()
+        reset_counts()
         with torch.inference_mode():
             unet(x, torch.full((n_rows, 16), 500, device="cuda", dtype=torch.long),
                  _randn((n_rows, 154, 1024), gen), fps=16)
@@ -1111,6 +1126,201 @@ def phase_geglu(rows):
           flush=True)
     geglu_host_us()
     return summary
+
+
+# MoCA's window step over every FIFO window (ops/moca_scan.py,
+# csrc/moca_scan.cu) against the per-window loop on the same card and noise:
+# relative L2 of the new queue and of pred_x0. The kernel does the loop's
+# float32 operations in its order, each rounded once, so it reads 0; the
+# limit is tests/test_torch_cuda.py's SCAN_TOL. Planted fault: the momentum
+# dropped (the kernel with `enable_momentum` off).
+SCAN_TOL = 1e-5
+SCAN_REPLACES = "none; stands beside moca_tpu/sampling/moca.py (moca_window_step)"
+# the stream's tally key: 8 windows, one row, a queue of 72 slots, 16 frames of 40 x 64 x 4
+SCAN_CELL = (8, 1, 72, 16, 40, 64, 4, "fp32")
+# fifo_step calls and per-window loops on CUDA queues
+# since the last `reset_counts` (counted once `count_moca_steps` ran), and each
+# MoCA run's (fifo steps, scan launches) by its label
+MOCA_CALLS = {"fifo_step": 0, "window_loop": 0}
+MOCA_TALLY: dict = {}
+
+
+def count_moca_steps():
+    """Count the pipeline's fifo_step calls and the per-window loop's runs on
+    CUDA queues in this process (MOCA_CALLS)."""
+    from moca_tpu_torch.pipelines import moca_video
+    from moca_tpu_torch.sampling import fifo
+
+    step, loop = moca_video.fifo_step, fifo._moca_window_loop
+
+    def counted_step(eps_fn, sch, plan, cfg, latents, *args, **kwargs):
+        MOCA_CALLS["fifo_step"] += latents.is_cuda
+        return step(eps_fn, sch, plan, cfg, latents, *args, **kwargs)
+
+    def counted_loop(sch, plan, cfg, latents, *args, **kwargs):
+        MOCA_CALLS["window_loop"] += latents.is_cuda
+        return loop(sch, plan, cfg, latents, *args, **kwargs)
+
+    moca_video.fifo_step, fifo._moca_window_loop = counted_step, counted_loop
+
+
+def reset_counts():
+    """Empty every kernel's launch tally and the MoCA step counts."""
+    cuda_libs.reset_launch_counts()
+    MOCA_CALLS.update(fifo_step=0, window_loop=0)
+
+
+def _scan_inputs(key, gen, branch="davis"):
+    """(schedule, plan, cfg, queue, eps, cond, masks) on the card at the scan's
+    tally key (R, B, Q, f, h, w, C, "fp32"): lookahead where Q is not R * f;
+    DAVIS masks (a box on every slot) and a concept image."""
+    import torch
+    from moca_tpu_torch.sampling import fifo, moca
+    from moca_tpu_torch.schedule import make_schedule
+
+    r, b, q, f = key[:4]
+    hwc = tuple(key[4:7])
+    lookahead = q != r * f
+    n = r // 2 if lookahead else r
+    sch = make_schedule(f * n, device="cuda")
+    plan = fifo.make_fifo_plan(sch.ddim_timesteps_np, f, n, lookahead)
+    cfg = moca.MoCAConfig(inject_into_queue=branch == "inject_into_queue")
+    queue = torch.randn((b, q) + hwc, generator=gen, device="cuda")
+    eps = torch.randn((r, b, f) + hwc, generator=gen, device="cuda")
+    masks = torch.zeros((1, q) + hwc[:2] + (1,), device="cuda")
+    masks[:, :, hwc[0] // 4: 3 * hwc[0] // 4, hwc[1] // 4: 3 * hwc[1] // 4] = 1.0
+    cond = torch.rand(hwc, generator=gen, device="cuda")
+    return sch, plan, cfg, queue, eps, cond, masks
+
+
+def check_moca_scan(key, gen, rows, reps=50):
+    """The scan at its tally `key` against the per-window loop on the same
+    noise, in DAVIS mode with pred_x0 and with injection into the queue, and
+    the planted fault (momentum dropped); timed (the launch alone, noise and
+    tables built) beside the plain loop (its draws, ~30 ops a frame and the
+    write-back's concatenation) and the scan's route (the draws and the
+    launch), with its bytes bound (one read of each queue slot, of every
+    window's eps and of the noise, one write of each queue slot: the cell's
+    path, no pred_x0; the windows' overlapping reads of a slot count once).
+    Appends a row (no library time: no one PyTorch call computes the step);
+    returns (ms, bound_ms, plain_ms, route_ms)."""
+    import dataclasses
+
+    import torch
+    from moca_tpu_torch.ops import moca_scan as tms
+    from moca_tpu_torch.sampling import fifo
+    from moca_tpu_torch.sampling.ddim import GeneratorNormal
+
+    def err(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    errs = []
+    for branch in ("davis", "inject_into_queue"):
+        sch, plan, cfg, queue, eps, cond, masks = _scan_inputs(key, gen, branch)
+        windows = fifo._gather_windows(queue, plan)
+        with torch.inference_mode():
+            want = fifo._moca_window_loop(sch, plan, cfg, queue, windows, eps,
+                                          GeneratorNormal(SEED, "cuda"), ("i",), cond, masks,
+                                          True, 0.5, True)
+            got = fifo._moca_scan_step(sch, plan, cfg, queue, eps, GeneratorNormal(SEED, "cuda"),
+                                       ("i",), cond, masks, True, True)
+            errs += [err(got[0], want[0]), err(got[1], want[1])]
+            if branch == "davis":
+                dropped = fifo._moca_scan_step(
+                    sch, plan, dataclasses.replace(cfg, enable_momentum=False), queue, eps,
+                    GeneratorNormal(SEED, "cuda"), ("i",), cond, masks, True, False)
+                fault = err(dropped[0], want[0])
+    worst = max(errs)
+    r, b, q, f = key[:4]
+    if not worst <= SCAN_TOL < fault:
+        fail(f"moca_scan {key}: err {worst} (tol {SCAN_TOL}), planted fault {fault}")
+    # the cell's path: DAVIS masks, injection off the queue, no pred_x0
+    sch, plan, cfg, queue, eps, cond, masks = _scan_inputs(key, gen)
+    windows = fifo._gather_windows(queue, plan)
+    normal = GeneratorNormal(SEED, "cuda")
+    table, slots = fifo.scan_tables(sch, plan, cfg, True, True, queue.device)
+    noise = fifo.draw_window_noise(normal, ("i",), plan, queue.shape[2:], queue.device)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: tms.moca_scan(queue, eps, noise, table, slots, beta=cfg.beta,
+                                           dir_weight=cfg.dir_weight), reps)
+        plain_ms = cuda_ms(lambda: fifo._moca_window_loop(
+            sch, plan, cfg, queue, windows, eps, normal, ("i",), cond, masks, True, 0.5, False),
+            3, warmup=1)
+        route_ms = cuda_ms(lambda: fifo._moca_scan_step(
+            sch, plan, cfg, queue, eps, normal, ("i",), cond, masks, True, False), 10)
+    frame = queue[0, 0].numel()
+    bound = (2 * b * q + r * f * (b + 1)) * frame * 4 / H100_BYTES_PER_S * 1e3
+    print(f"[moca_scan R={r} B={b} Q={q} f={f} {tuple(key[4:7])}] err {worst:.3e} (tol "
+          f"{SCAN_TOL}, planted fault {fault:.3e}) kernel {ms:.4f} ms ({100 * bound / ms:.1f} % "
+          f"of bound) plain loop {plain_ms:.4f} ms, scan route (draws and launch) "
+          f"{route_ms:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+    rows.append(dict(name=f"moca_scan fp32 R={r} B={b} Q={q} f={f} hwc={key[4:7]}",
+                     route="cuda", source="moca_tpu_torch/csrc/moca_scan.cu",
+                     replaces=SCAN_REPLACES, shape=tuple(key), max_rel_err=worst,
+                     fault_rel_err=fault, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                     bound_by="bytes", library_ms=None, route_ms=route_ms))
+    return ms, bound, plain_ms, route_ms
+
+
+def moca_scan_host_us(rounds=3, reps=500):
+    """Host microseconds a call of the wrapper `moca_scan` (tables and noise
+    built) and of the whole scan route (`_moca_scan_step`: 128 draws and the
+    launch) at the stream's shape, beside a PyTorch `x + 1`: the wall time of
+    `reps` calls back to back, one sync after them; the median of `rounds`."""
+    import statistics
+
+    import torch
+    from moca_tpu_torch.ops import moca_scan as tms
+    from moca_tpu_torch.sampling import fifo
+    from moca_tpu_torch.sampling.ddim import GeneratorNormal
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sch, plan, cfg, queue, eps, cond, masks = _scan_inputs(SCAN_CELL, gen)
+    normal = GeneratorNormal(SEED, "cuda")
+    table, slots = fifo.scan_tables(sch, plan, cfg, True, True, queue.device)
+    noise = fifo.draw_window_noise(normal, ("i",), plan, queue.shape[2:], queue.device)
+    fns = {"moca_scan": lambda: tms.moca_scan(queue, eps, noise, table, slots, beta=cfg.beta,
+                                              dir_weight=cfg.dir_weight),
+           "scan_route": lambda: fifo._moca_scan_step(sch, plan, cfg, queue, eps, normal, ("i",),
+                                                      cond, masks, True, False),
+           "add": lambda: queue + 1}
+    times = {name: [] for name in fns}
+    with torch.inference_mode():
+        for _ in range(rounds):
+            for name, fn in fns.items():
+                n = reps // 20 if name == "scan_route" else reps
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) / n * 1e6)
+    us = {name: statistics.median(t) for name, t in times.items()}
+    print(f"[moca host] us a call, median of {rounds} rounds "
+          f"{json.dumps({k: round(v, 2) for k, v in us.items()})}", flush=True)
+    reset_counts()
+    return us
+
+
+def phase_moca_scan(rows):
+    """The scan at the stream's shape (SCAN_CELL) and at two rows: held to the
+    loop and timed (`check_moca_scan`, a row each); `[moca summary]` gives the
+    stream's iteration (the kernel's ms, the plain loop's, the scan route's,
+    the bytes bound) and the host's us a call (`moca_scan_host_us`)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    two_rows = (SCAN_CELL[0], 2) + SCAN_CELL[2:]
+    ms, bound, plain_ms, route_ms = check_moca_scan(SCAN_CELL, gen, rows)
+    check_moca_scan(two_rows, gen, rows)
+    host = moca_scan_host_us()
+    summary = dict(kernel_ms=ms, plain_loop_ms=plain_ms, scan_route_ms=route_ms, bound_ms=bound,
+                   bound_share=bound / ms)
+    summary = {k: round(v, 4) for k, v in summary.items()}
+    summary["host_us"] = {k: round(v, 2) for k, v in host.items()}
+    print(f"[moca summary, an iteration of the stream] {json.dumps(summary)}", flush=True)
 
 
 def unet_shapes(rows: int, ctx: int, lat=(40, 64), f=16):
@@ -1363,7 +1573,7 @@ def check_unet_reference(label, ctx_len, switched, expect, dtype=None, **cfg_kw)
     with torch.inference_mode():
         ref = ref_model(x, ts, ctx, fps=10)
         gpu_model = ref_model.to("cuda", dtype)
-        cuda_libs.reset_launch_counts()
+        reset_counts()
         with switches_on() if switched else contextlib.nullcontext():
             out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
     rel = ((out - ref).abs().max() / ref.abs().max()).item()
@@ -1455,7 +1665,7 @@ def phase_main_path(new_video_length: int, num_partitions: int):
                                  new_video_length=new_video_length, guidance_scale=12.0)
         torch.cuda.reset_peak_memory_stats()
         with switches_on() if run == "switched" else contextlib.nullcontext():
-            cuda_libs.reset_launch_counts()
+            reset_counts()
             t0 = time.perf_counter()
             frames = pipe(**main_path_call())
             total = time.perf_counter() - t0
@@ -1483,12 +1693,20 @@ def _check_frames(label, frames, iters):
 
 def _launches(label, expect):
     """{kernel: {shape: n}} since the last reset; fails unless every kernel
-    in `expect` launched."""
+    in `expect` launched, and unless every FIFO step on a CUDA queue
+    launched the MoCA scan once and none ran the per-window loop."""
     launched = {fn.__name__: dict(fn.launches) for fn in cuda_libs.TALLIED}
     counts = {name: sum(by_shape.values()) for name, by_shape in launched.items()}
     for name in expect:
         if counts[name] <= 0:
             fail(f"{label} launched {name} no time")
+    steps, loops = MOCA_CALLS["fifo_step"], MOCA_CALLS["window_loop"]
+    if counts.get("moca_scan", 0) != steps or loops:
+        fail(f"{label}: {steps} FIFO steps on CUDA queues launched the MoCA scan "
+             f"{counts.get('moca_scan', 0)} times and ran the per-window loop {loops} times "
+             f"(want one launch a step and no loop)")
+    if steps:
+        MOCA_TALLY[label] = {"fifo_steps": steps, "scan_launches": counts["moca_scan"]}
     print(f"[{label}] launches {json.dumps(counts)}", flush=True)
     return launched
 
@@ -1611,7 +1829,7 @@ def phase_davis(model, new_video_length: int, num_partitions: int):
                              num_partitions=num_partitions,
                              new_video_length=new_video_length, guidance_scale=12.0)
     torch.cuda.reset_peak_memory_stats()
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     video = pipe("object bear cat.", normal=normal, cond_image=cond, gamma=0.5, height=320,
                  width=512, clean_latents=clean, masks=masks, davis_frames=frames)
@@ -1691,7 +1909,7 @@ def phase_open_vocab(model, new_video_length: int, num_partitions: int):
     _check_frames("open-vocab baseline", pipe("a cat surfing", **call), iters)
     baseline = (pipe.timings["fifo_iteration"] + pipe.timings["decode"]) / iters
     torch.cuda.reset_peak_memory_stats()
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     out = io.StringIO()
     t0 = time.perf_counter()
     with profile_env(), contextlib.redirect_stdout(out):
@@ -1816,7 +2034,7 @@ def phase_t2v_batch(model):
                              guidance_scale=12.0, fps=28)
     root = os.path.join("build", "smoke_t2v")
     torch.cuda.reset_peak_memory_stats()
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     written, seconds = run_batch_cli(pipe, ["--bs", "4"], T2V_PROMPTS, os.path.join(root, "bs4"))
     launched = {"t2v_bs4": _launches("t2v bs4", ("flash_attention", "packed_attention"))}
     stages, peak = dict(pipe.timings), torch.cuda.max_memory_allocated() / 2**30
@@ -1828,7 +2046,7 @@ def phase_t2v_batch(model):
           f"{seconds:.2f} s ({seconds / 4:.2f} s a prompt); stages "
           f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; peak memory "
           f"{peak:.1f} GiB", flush=True)
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     single, seconds1 = run_batch_cli(pipe, ["--bs", "1"], T2V_PROMPTS[:2],
                                      os.path.join(root, "bs1"))
     launched["t2v_bs1"] = _launches("t2v bs1", ("flash_attention", "packed_attention"))
@@ -1863,7 +2081,7 @@ def phase_t2v_variants(model):
             ("freeinit", {}, dict(iterations=2)))
     for run, build, call in runs:
         pipe = T2VPipeline.build(model, tok, num_steps=10, guidance_scale=12.0, fps=28, **build)
-        cuda_libs.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         if run == "freeinit":
             video = pipe.sample_with_freeinit(prompt, seed=SEED, **size, **call)
@@ -1880,7 +2098,7 @@ def phase_t2v_variants(model):
             gen = torch.Generator(device="cuda").manual_seed(3)
             x = torch.randn((1, 16, 40, 64, 4), generator=gen, device="cuda")
             ctx = pipe.encode_prompts([prompt])
-            cuda_libs.reset_launch_counts()
+            reset_counts()
             with torch.inference_mode():
                 model.apply_unet(x, torch.full((1, 16), 500, device="cuda"), ctx, 28,
                                  no_temporal_attn=True)
@@ -1890,7 +2108,7 @@ def phase_t2v_variants(model):
             print(f"[t2v no_temporal_attn] one forward launches {json.dumps(counts)}", flush=True)
     pipe = T2VPipeline.build(model, tok, num_steps=0, guidance_scale=12.0, fps=28,
                              num_timesteps=DDPM_STEPS)
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     written, seconds = run_batch_cli(pipe, ["--ddim_steps", "0", "--height", "128",
                                             "--width", "128"], T2V_PROMPTS[:1],
                                      os.path.join("build", "smoke_t2v", "ddpm"))
@@ -1919,7 +2137,7 @@ def phase_moca_batched(model, num_partitions: int, new_video_length: int):
     prompts = [T2V_PROMPTS[0], T2V_PROMPTS[2]]
     iters = new_video_length + pipe.num_inference_steps - 16
     torch.cuda.reset_peak_memory_stats()
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     streams = pipe(prompts, **call)
     total = time.perf_counter() - t0
@@ -1933,7 +2151,7 @@ def phase_moca_batched(model, num_partitions: int, new_video_length: int):
           f"({steady / 2:.3f} s a frame); stages "
           f"{json.dumps({k: round(v, 3) for k, v in t.items()})}; peak memory {peak:.1f} GiB",
           flush=True)
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     single = pipe(prompts[0], **call)
     launched["moca_b1"] = _launches("moca B=1", ("flash_attention", "packed_attention"))
     _check_frames("MoCA B=1", single, iters)
@@ -1989,7 +2207,7 @@ def check_unet_i2v():
         ref = ref_model(x, ts, ctx, fps=10)
         change = rel_max(ref_model(x, ts, zeroed, fps=10), ref)
         gpu_model = ref_model.to("cuda", torch.bfloat16)
-        cuda_libs.reset_launch_counts()
+        reset_counts()
         out = gpu_model(x.cuda(), ts.cuda(), ctx.cuda(), fps=10).float().cpu()
         _launches("unet reference, i2v", ("flash_attention", "packed_attention"))
         fault = gpu_model(x.cuda(), ts.cuda(), zeroed.cuda(), fps=10).float().cpu()
@@ -2096,7 +2314,7 @@ def phase_i2v():
     pipe = T2VPipeline.build(model, HashTokenizer(), num_steps=10, guidance_scale=12.0, fps=28)
     names = [f"{i}.mp4" for i in range(len(paths))]
     torch.cuda.reset_peak_memory_stats()
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     written, seconds = run_batch_cli(
         pipe, ["--mode", "i2v", "--cond_input", cond_dir, "--ddim_steps", "10"],
         T2V_PROMPTS[:2], os.path.join(root, "out"), names)
@@ -2305,7 +2523,7 @@ def phase_eval_sweep(model):
         "--clip_vision_ckpt", paths["visual"], "--lpips_ckpt", paths["lpips"],
         "--i3d_ckpt", paths["i3d"]])
     torch.cuda.reset_peak_memory_stats()
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     summary = eval_sweep.main(args, pipe=pipe)
     seconds = time.perf_counter() - t0
@@ -2413,7 +2631,7 @@ def _mesh_rank(rank, new_video_length, num_partitions):
                              guidance_scale=12.0, mesh=mesh)
     call = dict(main_path_call(), latents_dir=os.path.join(MESH_DIR, "latents"))
     torch.cuda.reset_peak_memory_stats()
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     dist.barrier()
     t0 = time.perf_counter()
     frames = np.stack(pipe(**call))
@@ -2474,7 +2692,7 @@ def _mesh_cli(port, num_partitions):
 
     cli.load_pipeline = load
     os.chdir(root)
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     cli.main(cli.build_parser().parse_args([
         "--prompt_file", prompts, "--output_dir", "out", "--mesh", "1,1", "-n",
@@ -2564,6 +2782,10 @@ def phase_mesh(main_frames, main_launches, new_video_length: int, num_partitions
         got = {k: v for k, v in launched.items() if v and k in KERNEL_NAMES}
         if got != expect:
             fail(f"phase 13 rank {r}: launches {got} != half of phase 4's rows {expect}")
+        if launched.get("moca_scan") != main_launches.get("moca_scan"):
+            fail(f"phase 13 rank {r}: MoCA scan launches {launched.get('moca_scan')} != phase "
+                 f"4's {main_launches.get('moca_scan')} (every rank runs the whole loop)")
+        MOCA_TALLY[f"mesh rank {r}"] = {"scan_launches": sum(launched["moca_scan"].values())}
         shapes[f"mesh_rank{r}"] = launched
         t = st["stages"]
         print(f"[mesh rank {r}] {iters} iterations; steady (FIFO+decode) "
@@ -2651,7 +2873,7 @@ def run_acceptance(ckpt, bpe):
             "--new_video_length", str(ACCEPT_NEW_FRAMES), "--skip_oracles",
             "--reference_frames", golden_npz]
     torch.cuda.reset_peak_memory_stats()
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     code = acceptance.main(argv)
     total = time.perf_counter() - t0
@@ -2728,7 +2950,7 @@ def run_condition_images(ckpt, bpe):
         f.write("prompt,conditioned_object,conditioned_image_path,conditioned_prompt,gamma\n"
                 f"a red fox,cat,{assets}/cat.png,a cat,0.4\n"
                 f"a blue bird,dog,{assets}/dog.png,a dog,0.6\n")
-    cuda_libs.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     written = generate_condition_images.main(
         ["--ckpt_path", ckpt, "--config", SHIPPED_YAML, "--prompts_file", csv,
@@ -2930,7 +3152,7 @@ def head160_forward(rows: int, ctx_len: int, f: int = 16):
     with torch.inference_mode():
         errors, first = [], []
         with unet_packed_swapped(packed_held_to_plain(fa.packed_attention, errors, first)):
-            cuda_libs.reset_launch_counts()
+            reset_counts()
             out = unet(x, ts, ctx, fps=10)
             torch.cuda.synchronize()
         launched = _launches("phase 5 num_head_channels=160", ("packed_attention",))
@@ -2959,7 +3181,7 @@ def head160_forward(rows: int, ctx_len: int, f: int = 16):
             fail(f"phase 5 num_head_channels=160: launches {counts}, want {want} (K2 once at "
                  f"each of the {len(temporal)} temporal and init attentions, nothing else)")
         with unet_packed_swapped(fa.packed_attention_plain):
-            cuda_libs.reset_launch_counts()
+            reset_counts()
             twin = unet(x, ts, ctx, fps=10)
             torch.cuda.synchronize()
             if fa.packed_attention.launches:
@@ -3013,7 +3235,7 @@ def fp32_forwards(model, rows: int, ctx_len: int, f: int = 16):
                 ("unet_fp32_full_fused", FUSED_ONLY, ("flash_attention", "fused_qkv_attention"))):
             with switches_on(env):
                 fwd_ms[run] = cuda_ms(lambda: unet(x, ts, ctx, fps=10), reps=2, warmup=1)
-                cuda_libs.reset_launch_counts()
+                reset_counts()
                 out[run] = unet(x, ts, ctx, fps=10)
                 torch.cuda.synchronize()
                 launched[run] = _launches(f"phase 5 {run}", expect)
@@ -3105,12 +3327,15 @@ def kernel_summary(shapes, rows):
             ("launches", "ms", "bound_ms", "plain_ms", "library_ms"), 0.0))
         total["launches"] += r["launches"]
         for field in ("ms", "bound_ms", "plain_ms", "library_ms"):
-            total[field] += r["launches"] * r[field]
+            if total[field] is None or r[field] is None:  # a kernel with no library call
+                total[field] = None
+            else:
+                total[field] += r["launches"] * r[field]
     for total in summary.values():  # the share of its bound the kernel reached over the runs
         total["bound_share"] = total["bound_ms"] / total["ms"] if total["ms"] else 0.0
-    print(f"[kernel summary, launch-weighted] "
-          f"{json.dumps({k: {f: round(v, 4) for f, v in t.items()} for k, t in summary.items()})}",
-          flush=True)
+    rounded = {k: {f: v if v is None else round(v, 4) for f, v in t.items()}
+               for k, t in summary.items()}
+    print(f"[kernel summary, launch-weighted] {json.dumps(rounded)}", flush=True)
 
 
 def main(argv):
@@ -3131,11 +3356,13 @@ def main(argv):
         return out
 
     timed("phase 1, build", phase_build)
+    count_moca_steps()
     # text context: 77 prompt tokens, 154 with the conditioned prompt (FIFO)
     rows = timed("phase 2, kernels against their plain versions", phase_kernels, rows_fifo, 2,
                  154, 77)
     timed("phase 2b, norms against their plain versions", phase_norms, rows)
     timed("phase 2c, GEGLU against its plain version", phase_geglu, rows)
+    timed("phase 2d, MoCA scan against the per-window loop", phase_moca_scan, rows)
     unet_runs = timed("phase 3, U-Net against its plain path", phase_unet_reference)
     shapes, model, main_frames = timed("phase 4, main path", phase_main_path, new_video_length,
                                        num_partitions)
@@ -3155,8 +3382,9 @@ def main(argv):
     shapes.update(timed("phase 13, mesh", phase_mesh, main_frames, shapes["default"],
                         new_video_length, num_partitions))
     shapes.update(timed("phase 14, user scripts", phase_user_scripts))
-    timed("phase 15, norms and GEGLU at the runs' other shapes", phase_norm_shapes, shapes,
-          rows)
+    timed("phase 15, norms, GEGLU and MoCA scan at the runs' other shapes", phase_norm_shapes,
+          shapes, rows)
+    print(f"[moca scan tally] {json.dumps(MOCA_TALLY)}", flush=True)
 
     kernel_summary(shapes, rows)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -10,7 +10,8 @@ its C entry points with their argtypes, which `load_library` sets once, so a
 wrapper calls `load_library(name).<entry point>` directly.
 
 The op modules sit on this one and it imports none of them: ops/flash_attention.py
-(K1-K4), ops/norms.py (GroupNorm, LayerNorm) and ops/geglu.py (GEGLU). A kernel
+(K1-K4), ops/norms.py (GroupNorm, LayerNorm), ops/geglu.py (GEGLU) and
+ops/moca_scan.py (MoCA's window step over every FIFO window). A kernel
 adds its row to `LIBRARIES`, its own source and its own op module, which
 imports only the public names below. Each CUDA wrapper is registered with
 `tallied` and keeps a `launches` tally, {shape key: launches}, to which
@@ -73,6 +74,9 @@ LIBRARIES = {
                                           _i, _ll, _f, _i, _p],
                       "moca_layer_norm": [_p, _p, _p, _p, _i, _i, _ll, _i, _i, _f, _p]}),
     "geglu": Library(("geglu.cu",), {"moca_geglu": [_p, _p, _i, _ll, _ll, _i, _i, _i, _p]}),
+    "moca_scan": Library(("moca_scan.cu",),
+                         {"moca_scan": [_p] * 10 + [_i] * 4 + [_ll, _i, _i, _i, _f, _f, _f,
+                                                              _i, _i, _i, _p]}),
 }
 
 # the `dtype` argument of moca_group_norm, moca_layer_norm and moca_geglu

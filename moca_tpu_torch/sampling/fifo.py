@@ -7,6 +7,16 @@ reference's reversed-rank sweep with immediate write-back, since window r
 only writes slots above every lower-rank read range (see the reference
 module). The per-window MoCA steps and the write-back follow; the FreeInit
 tail shift refills the queue. Static index maps live in numpy in `FIFOPlan`.
+
+The MoCA step takes one of two routes, by the queue's device alone. On a
+CUDA device, one kernel launch (ops/moca_scan.py, float32 only; it refuses
+any other type) runs every window's step and writes the new queue (and
+pred_x0) in the write-back's tiling; its frame and slot tables are built
+once for each schedule, setting and device and kept with the plan. On the
+CPU, the per-window loop of `moca_window_step` and the write-back's
+concatenation. Both draw the same noise, tag+("win", r, "frame", j),
+r-major and j-minor.
+
 Trace ranges (utils/profiling.py `annotate`) in `fifo_step`:
 `sampler.windows` (the window gather and the timesteps' upload) and
 `sampler.moca` (every window's MoCA step and the write-back).
@@ -22,7 +32,8 @@ import torch
 
 from moca_tpu_torch import freeinit
 from moca_tpu_torch.sampling.ddim import Normal, shared_normal, stochastic_encode
-from moca_tpu_torch.sampling.moca import MoCAConfig, moca_window_step
+from moca_tpu_torch.ops.moca_scan import moca_scan
+from moca_tpu_torch.sampling.moca import MoCAConfig, moca_frame_table, moca_window_step
 from moca_tpu_torch.schedule import DiffusionSchedule
 from moca_tpu_torch.utils.profiling import annotate
 
@@ -36,6 +47,11 @@ class FIFOPlan:
     lookahead: bool
     timesteps: np.ndarray      # [Q] DDPM timestep per queue slot (noisiest last)
     indices: np.ndarray        # [Q] DDIM schedule index per queue slot
+    # the one-launch step's tables on the device (`scan_tables`), by
+    # (id of the schedule, settings, device); each holds its schedule, so
+    # that id names no other schedule while the plan lives
+    tables: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                     compare=False)
 
     @property
     def f(self) -> int:
@@ -69,6 +85,22 @@ class FIFOPlan:
 
     def window_indices(self) -> np.ndarray:
         return np.stack([self.indices[s: s + self.f] for s in self.window_starts])
+
+    def scan_slots(self) -> np.ndarray:
+        """[R, f, 3] int32 (ops/moca_scan.py `SLOT_COLUMNS`): for frame j of
+        window r, the queue slot it reads (start + j), the slot its output
+        lands in and 1 where that output is the old value. Window r commits
+        its frames from f/2 (lookahead) or 0 on, the tiling of
+        `_scatter_windows`; with lookahead, window 0's frames [0, f/2) land
+        in the immutable prefix [0, f/2), the queue keeping its old values
+        and pred_x0 taking the window's (`scatter_pred_x0`). Every other
+        frame lands nowhere (-1)."""
+        j = np.arange(self.f)[None, :]
+        committed = j >= (self.f // 2 if self.lookahead else 0)
+        lands = committed | (np.arange(self.num_windows) == 0)[:, None]
+        src = self.window_starts[:, None] + j
+        return np.stack([src, np.where(lands, src, -1), lands & ~committed],
+                        axis=-1).astype(np.int32)
 
 
 def make_fifo_plan(sch_ddim_timesteps: np.ndarray, video_length: int,
@@ -179,31 +211,93 @@ def fifo_step(eps_window_fn: Callable, sch: DiffusionSchedule, plan: FIFOPlan,
     `masks` are queue-aligned [B, Q, h, w, 1], DAVIS masks or, with
     `masks_are_davis=False`, a mask provider's. Returns (new_queue,
     head_latent), and with `with_pred_x0` also the queue-aligned
-    pre-injection pred_x0 (scatter_pred_x0) for a host-side mask provider."""
+    pre-injection pred_x0 (scatter_pred_x0) for a host-side mask provider.
+    A queue on a CUDA device takes one kernel launch for every window's step
+    (`_moca_scan_step`); a CPU queue the loop."""
     R, B, f = plan.num_windows, latents.shape[0], plan.f
     with annotate("sampler.windows"):
         windows = _gather_windows(latents, plan)               # [R, B, f, h, w, C]
-        w_ts, w_idx = plan.window_timesteps(), plan.window_indices()
         flat_x = windows.reshape((R * B, f) + tuple(windows.shape[3:]))
-        flat_t = torch.as_tensor(np.repeat(w_ts, B, axis=0), device=latents.device)
+        flat_t = torch.as_tensor(np.repeat(plan.window_timesteps(), B, axis=0),
+                                 device=latents.device)
     eps = eps_window_fn(flat_x, flat_t).reshape(windows.shape)
 
     with annotate("sampler.moca"):
-        w_masks = None if masks is None else _gather_windows(masks, plan)
-        x_prev, pred_pre = [], []
-        for r in range(R):
-            out = moca_window_step(
-                sch, moca_cfg, windows[r], eps[r], w_idx[r], w_ts[r], normal, tag + ("win", r),
-                cond_image=cond_image, masks=None if w_masks is None else w_masks[r],
-                masks_are_davis=masks_are_davis, gamma=gamma, with_preinject=with_pred_x0)
-            x_prev.append(out[0])
-            if with_pred_x0:
-                pred_pre.append(out[2])
-        new_latents = _scatter_windows(latents, x_prev, plan)
+        if latents.is_cuda:
+            new_latents, pred = _moca_scan_step(sch, plan, moca_cfg, latents, eps, normal, tag,
+                                                cond_image, masks, masks_are_davis,
+                                                with_pred_x0)
+        else:
+            new_latents, pred = _moca_window_loop(sch, plan, moca_cfg, latents, windows, eps,
+                                                  normal, tag, cond_image, masks,
+                                                  masks_are_davis, gamma, with_pred_x0)
         head = new_latents[:, plan.head_slot]
         if with_pred_x0:
-            return new_latents, head, scatter_pred_x0(pred_pre, plan)
+            return new_latents, head, pred
         return new_latents, head
+
+
+def _moca_window_loop(sch, plan, moca_cfg, latents, windows, eps, normal, tag, cond_image,
+                      masks, masks_are_davis, gamma, with_pred_x0):
+    """(new queue, queue-aligned pred_x0 or None): `moca_window_step` for each
+    window, then the write-back's concatenation."""
+    w_ts, w_idx = plan.window_timesteps(), plan.window_indices()
+    w_masks = None if masks is None else _gather_windows(masks, plan)
+    x_prev, pred_pre = [], []
+    for r in range(plan.num_windows):
+        out = moca_window_step(
+            sch, moca_cfg, windows[r], eps[r], w_idx[r], w_ts[r], normal, tag + ("win", r),
+            cond_image=cond_image, masks=None if w_masks is None else w_masks[r],
+            masks_are_davis=masks_are_davis, gamma=gamma, with_preinject=with_pred_x0)
+        x_prev.append(out[0])
+        if with_pred_x0:
+            pred_pre.append(out[2])
+    new_latents = _scatter_windows(latents, x_prev, plan)
+    return new_latents, scatter_pred_x0(pred_pre, plan) if with_pred_x0 else None
+
+
+def draw_window_noise(normal: Normal, tag: tuple, plan: FIFOPlan, frame_shape: tuple,
+                      device) -> torch.Tensor:
+    """[R, f, *frame_shape] float32 on `device`: every window's step noise,
+    frame j of window r the draw tag+("win", r, "frame", j) of shape
+    [1, *frame_shape], in the loop's order (r-major, j-minor), so that a
+    generator gives both routes the same numbers."""
+    frame_shape = tuple(frame_shape)
+    draws = [shared_normal(normal, tag + ("win", r, "frame", j), (1,) + frame_shape)[0]
+             for r in range(plan.num_windows) for j in range(plan.f)]
+    noise = torch.stack(draws).to(device=device, dtype=torch.float32)
+    return noise.view((plan.num_windows, plan.f) + frame_shape)
+
+
+def scan_tables(sch: DiffusionSchedule, plan: FIFOPlan, cfg: MoCAConfig, masks_are_davis: bool,
+                have_masks: bool, device) -> tuple:
+    """(frame table [R, f, 9] float32, slots [R, f, 3] int32) on `device` for
+    the one-launch step, built on the host and copied once for each
+    schedule, setting and device, and kept in `plan.tables`; later calls
+    find them there. The first call reads the schedule's scalars to the
+    host (one wait for the device, in the run's first iteration)."""
+    key = (id(sch), cfg, masks_are_davis, have_masks, str(device))
+    if key not in plan.tables:
+        table = moca_frame_table(sch, cfg, plan.window_indices(), plan.window_timesteps(),
+                                 masks_are_davis, have_masks)
+        plan.tables[key] = (sch, (torch.as_tensor(table, device=device),
+                                  torch.as_tensor(plan.scan_slots(), device=device)))
+    return plan.tables[key][1]
+
+
+def _moca_scan_step(sch, plan, moca_cfg, latents, eps, normal, tag, cond_image, masks,
+                    masks_are_davis, with_pred_x0):
+    """(new queue, queue-aligned pred_x0 or None) from one launch of the
+    kernel. Injection reaches the queue only with `inject_into_queue` (else
+    it changes only the blended pred_x0, which FIFO discards), so the masks
+    and the concept image go to the kernel only then."""
+    table, slots = scan_tables(sch, plan, moca_cfg, masks_are_davis, masks is not None,
+                               latents.device)
+    noise = draw_window_noise(normal, tag, plan, latents.shape[2:], latents.device)
+    inject = masks is not None and moca_cfg.enable_injection and moca_cfg.inject_into_queue
+    return moca_scan(latents, eps, noise, table, slots, masks=masks if inject else None,
+                     cond=cond_image if inject else None, beta=moca_cfg.beta,
+                     dir_weight=moca_cfg.dir_weight, with_pred=with_pred_x0)
 
 
 def scatter_pred_x0(pred, plan: FIFOPlan) -> torch.Tensor:

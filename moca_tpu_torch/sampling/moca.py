@@ -7,6 +7,11 @@ loop carrying (previous frame's pred_x0, momentum). As in the reference, this
 step applies no `use_scale` correction (unlike `ddim_step_math`), x_prev is
 computed before injection and the gamma-blend reuses the sigma-scaled
 step noise.
+
+`moca_frame_table` gives the loop's per-frame scalars for every window, as
+the loop computes them in float32, for the one-launch window step on the
+card (ops/moca_scan.py, which sampling/fifo.py `fifo_step` takes on CUDA
+queues).
 """
 
 from __future__ import annotations
@@ -103,3 +108,36 @@ def moca_window_step(sch: DiffusionSchedule, cfg: MoCAConfig, x: torch.Tensor,
         x_prevs.append(x_prev)
     out = torch.stack(x_prevs, dim=1), torch.stack(preds, dim=1)
     return out + (torch.stack(pre, dim=1),) if with_preinject else out
+
+
+def moca_frame_table(sch: DiffusionSchedule, cfg: MoCAConfig, indices, timesteps,
+                     masks_are_davis: bool = True, have_masks: bool = False) -> np.ndarray:
+    """[R, f, len(TABLE_COLUMNS)] float32 numpy (ops/moca_scan.py
+    `TABLE_COLUMNS`): the scalars `moca_window_step` uses at frame j of
+    window r, from the windows' DDIM `indices` and DDPM `timesteps` ([R, f],
+    host integers). The schedule's are the loop's own expressions, evaluated
+    by PyTorch on the schedule's device over every DDIM step and read to the
+    host once (so they round as the loop's do there: sqrt(1 - a_t) as
+    stored, sqrt(a_t), sqrt(clamp(1 - a_prev - sigma^2, 0)), sqrt(a_prev),
+    sigma); then the momentum's strength (in numpy, rounded to float32 as
+    PyTorch rounds the Python float), 1 where the momentum updates (frames
+    j > 0 with `enable_momentum`), the injection's factor, and 1 where
+    injection applies (`enable_injection`, masks given, and the t-gate of
+    the DAVIS or segmentation branch)."""
+    f32 = np.float32
+    idx, ts = np.asarray(indices), np.asarray(timesteps)
+    a_t, a_prev, sigma = sch.ddim_alphas, sch.ddim_alphas_prev, sch.ddim_sigmas
+    steps = torch.stack([sch.ddim_sqrt_one_minus_alphas, torch.sqrt(a_t),
+                         torch.sqrt(torch.clamp(1.0 - a_prev - sigma**2, min=0.0)),
+                         torch.sqrt(a_prev), sigma], dim=-1).cpu().numpy()[idx]
+    strength = np.array([[float(cfg.correction_gain * (1.0 - np.float32(t) / np.float32(1000.0)))
+                          for t in row] for row in ts.tolist()], np.float64)
+    momentum = np.broadcast_to(cfg.enable_momentum & (np.arange(ts.shape[1]) > 0), ts.shape)
+    below = ts <= cfg.inject_threshold
+    if masks_are_davis:
+        factor, gate_t = np.where(below, cfg.davis_enhancement, 1.0), np.ones_like(below)
+    else:
+        factor, gate_t = np.full(ts.shape, cfg.seg_enhancement), below
+    inject = gate_t & bool(cfg.enable_injection and have_masks)
+    rest = np.stack([strength, momentum, factor, inject], axis=-1).astype(f32)
+    return np.concatenate([steps.astype(f32), rest], axis=-1)

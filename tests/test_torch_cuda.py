@@ -906,3 +906,172 @@ def test_cuda_unet_forward_launches_one_geglu_a_feed_forward(cell, monkeypatch):
     assert torch.isfinite(out.float()).all()
     rel = ((out.float() - plain.float()).abs().max() / plain.float().abs().max()).item()
     assert rel <= 5e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# MoCA's window step over every FIFO window (csrc/moca_scan.cu) against the
+# per-window loop
+# ---------------------------------------------------------------------------
+
+# Relative L2 of the kernel's new queue (and pred_x0) against the loop's on
+# the same card: the kernel does the loop's float32 operations in its order,
+# each rounded once (no FMA contraction), so it reads 0 where nothing else
+# differs; the limit leaves room for one rounding apart and no more. Planted
+# faults (momentum dropped, the mask gate ignored) read far above it.
+SCAN_TOL = 1e-5
+_SCAN_BRANCHES = ["no_masks", "davis", "seg", "davis_no_cond", "inject_into_queue"]
+# (f, n, lookahead, (h, w, C)): the stream's plan and latent, without
+# lookahead, and an odd small frame (one value a thread)
+_SCAN_PLANS = [(16, 4, True, (40, 64, 4)), (16, 4, False, (40, 64, 4)),
+               (4, 2, True, (5, 7, 3)), (6, 3, False, (5, 7, 3))]
+
+
+def scan_err(out, ref):
+    return ((out.double() - ref.double()).norm() / ref.double().norm()).item()
+
+
+def _scan_case(branch, f, n, lookahead, hwc, B, seed=0):
+    """(schedule, plan, cfg, queue, eps, cond, masks) on the card, the branches
+    of tests/test_torch_sampling.py's `test_moca_window_step_matches`; the
+    masks leave every fifth slot empty, and slot f/2 + 2 (which a window
+    commits) holds values that sum to 0 with half its pixels at 1 (the gate
+    shuts it)."""
+    from moca_tpu_torch.sampling import fifo as tfifo
+    from moca_tpu_torch.sampling import moca as tmoca
+    from moca_tpu_torch.schedule import make_schedule
+
+    sch = make_schedule(f * n, device="cuda")
+    plan = tfifo.make_fifo_plan(sch.ddim_timesteps_np, f, n, lookahead)
+    cfg = tmoca.MoCAConfig(inject_into_queue=branch == "inject_into_queue")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, R = plan.queue_length, plan.num_windows
+    queue = torch.randn((B, q) + hwc, generator=gen, device="cuda")
+    eps = torch.randn((R, B, f) + hwc, generator=gen, device="cuda")
+    cond = (None if branch in ("no_masks", "davis_no_cond")
+            else torch.rand(hwc, generator=gen, device="cuda"))
+    masks = None
+    if branch != "no_masks":
+        h, w = hwc[:2]
+        masks = torch.zeros((1, q, h, w, 1), device="cuda")
+        masks[:, :, h // 4:, w // 3:] = 1.0
+        masks[:, ::5] = 0.0
+        pix = torch.arange(h * w, device="cuda").reshape(h, w, 1)
+        zero_sum = torch.where(pix % 2 == 0, 1.0, -1.0)
+        zero_sum[pix == (h * w) // 2 * 2] = 0.0  # the odd pixel out, where h * w is odd
+        masks[:, f // 2 + 2] = zero_sum
+    return sch, plan, cfg, queue, eps, cond, masks
+
+
+def _scan_runs(sch, plan, cfg, queue, eps, cond, masks, davis, seed=5):
+    """(kernel's fifo_step, the loop's (queue, pred_x0)) on the same noise."""
+    from moca_tpu_torch.sampling import fifo as tfifo
+    from moca_tpu_torch.sampling.ddim import GeneratorNormal
+
+    eps_fn = lambda x, t: eps.reshape(x.shape)  # noqa: E731
+    out = tfifo.fifo_step(eps_fn, sch, plan, cfg, queue, GeneratorNormal(seed, "cuda"), ("i",),
+                          cond_image=cond, masks=masks, masks_are_davis=davis, gamma=0.5,
+                          with_pred_x0=True)
+    windows = tfifo._gather_windows(queue, plan)
+    loop = tfifo._moca_window_loop(sch, plan, cfg, queue, windows, eps,
+                                   GeneratorNormal(seed, "cuda"), ("i",), cond, masks, davis,
+                                   0.5, True)
+    return out, loop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("f,n,lookahead,hwc", _SCAN_PLANS, ids=lambda v: str(v))
+@pytest.mark.parametrize("branch", _SCAN_BRANCHES)
+def test_cuda_moca_scan_matches_the_loop(branch, f, n, lookahead, hwc, B, monkeypatch):
+    """`fifo_step` on a float32 CUDA queue: one scan launch tallied under its
+    shape and no call of `moca_window_step`; its new queue, head and
+    pred_x0 within SCAN_TOL of the per-window loop's on the same noise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from moca_tpu_torch.ops import moca_scan as tms
+    from moca_tpu_torch.sampling import fifo as tfifo
+    from moca_tpu_torch.sampling.ddim import GeneratorNormal
+
+    sch, plan, cfg, queue, eps, cond, masks = _scan_case(branch, f, n, lookahead, hwc, B)
+    cuda_libs.reset_launch_counts()
+    with torch.inference_mode(), monkeypatch.context() as m:
+        calls = []
+        m.setattr(tfifo, "moca_window_step", lambda *a, **k: calls.append(1))
+        eps_fn = lambda x, t: eps.reshape(x.shape)  # noqa: E731
+        tfifo.fifo_step(eps_fn, sch, plan, cfg, queue, GeneratorNormal(5, "cuda"), ("i",),
+                        cond_image=cond, masks=masks, masks_are_davis=branch != "seg")
+        assert calls == []
+    key = cuda_libs.launch_key((plan.num_windows, B, plan.queue_length, f) + hwc, torch.float32)
+    assert tms.moca_scan.launches == {key: 1}
+    with torch.inference_mode():
+        (new, head, pred), (want, want_pred) = _scan_runs(sch, plan, cfg, queue, eps, cond,
+                                                          masks, branch != "seg")
+    torch.cuda.synchronize()
+    assert new.shape == want.shape and torch.isfinite(new).all()
+    assert scan_err(new, want) <= SCAN_TOL and scan_err(pred, want_pred) <= SCAN_TOL
+    assert torch.equal(head, new[:, plan.head_slot])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("f,n,lookahead,hwc", _SCAN_PLANS[:3], ids=lambda v: str(v))
+def test_cuda_moca_scan_faults_fail_the_tolerance(f, n, lookahead, hwc, B):
+    """Momentum dropped (the kernel run with `enable_momentum` off) and the
+    mask gate ignored (the kernel run on the masks with their negative values
+    zeroed, which opens the zero-sum slot's gate where injection reaches the
+    queue) must fail SCAN_TOL against the sound loop; the sound kernel holds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    import dataclasses
+
+    sch, plan, cfg, queue, eps, cond, masks = _scan_case("inject_into_queue", f, n, lookahead,
+                                                         hwc, B)
+    with torch.inference_mode():
+        (new, _, _), (want, _) = _scan_runs(sch, plan, cfg, queue, eps, cond, masks, True)
+        assert scan_err(new, want) <= SCAN_TOL
+        no_momentum = dataclasses.replace(cfg, enable_momentum=False)
+        (dropped, _, _), _ = _scan_runs(sch, plan, no_momentum, queue, eps, cond, masks, True)
+        (opened, _, _), _ = _scan_runs(sch, plan, cfg, queue, eps, cond, masks.clamp(min=0.0),
+                                       True)
+    assert scan_err(dropped, want) > SCAN_TOL, "momentum dropped"
+    assert scan_err(opened, want) > SCAN_TOL, "gate ignored"
+
+
+@pytest.mark.cuda
+def test_cuda_moca_scan_wrapper_rejects_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from moca_tpu_torch.ops import moca_scan as tms
+    from moca_tpu_torch.sampling import fifo as tfifo
+
+    sch, plan, cfg, queue, eps, cond, masks = _scan_case("davis", 4, 2, True, (5, 7, 3), 1)
+    table, slots = tfifo.scan_tables(sch, plan, cfg, True, True, queue.device)
+    noise = torch.zeros((plan.num_windows, 4, 5, 7, 3), device="cuda")
+    kw = dict(beta=cfg.beta, dir_weight=cfg.dir_weight)
+    with pytest.raises(ValueError, match="float32"):
+        tms.moca_scan(queue.double(), eps, noise, table, slots, **kw)
+    with pytest.raises(ValueError, match="eps"):
+        tms.moca_scan(queue, eps[:, :, :3], noise, table, slots, **kw)
+    with pytest.raises(ValueError, match="masks"):
+        tms.moca_scan(queue, eps, noise, table, slots, masks=masks[:, :-1], **kw)
+    with pytest.raises(ValueError, match="cond"):
+        tms.moca_scan(queue, eps, noise, table, slots, cond=cond[:-1], **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_fifo_step_refuses_a_queue_that_is_not_float32(dtype, monkeypatch):
+    """A CUDA queue of another type takes the kernel's route too, and fails
+    there with the wrapper's error: the per-window loop never runs on the
+    card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from moca_tpu_torch.sampling import fifo as tfifo
+    from moca_tpu_torch.sampling.ddim import GeneratorNormal
+
+    sch, plan, cfg, queue, eps, cond, masks = _scan_case("davis", 4, 2, True, (5, 7, 3), 1)
+    monkeypatch.setattr(tfifo, "moca_window_step", lambda *a, **k: pytest.fail("loop ran"))
+    eps_fn = lambda x, t: eps.to(dtype).reshape(x.shape)  # noqa: E731
+    with torch.inference_mode(), pytest.raises(ValueError, match="must be float32"):
+        tfifo.fifo_step(eps_fn, sch, plan, cfg, queue.to(dtype), GeneratorNormal(5, "cuda"),
+                        ("i",), cond_image=cond, masks=masks)

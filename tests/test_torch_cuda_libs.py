@@ -19,6 +19,7 @@ import torch
 from moca_tpu_torch.ops import cuda_libs
 from moca_tpu_torch.ops import flash_attention as tfa
 from moca_tpu_torch.ops import geglu as tg
+from moca_tpu_torch.ops import moca_scan as tms
 from moca_tpu_torch.ops import norms as tn
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -98,10 +99,11 @@ def _imports(path: Path):
             yield from ((node.module, a.name) for a in node.names)
 
 
-@pytest.mark.parametrize("module", ["flash_attention", "norms", "geglu", "attention"])
+@pytest.mark.parametrize("module", ["flash_attention", "norms", "geglu", "attention",
+                                    "moca_scan"])
 def test_op_modules_reach_the_libraries_only_through_cuda_libs(module):
     """No op module imports ctypes, subprocess or hashlib, another op module's
-    private name, or (norms, GEGLU) the attention module; nor reads another op
+    private name, or (norms, GEGLU, the MoCA scan) the attention module; nor reads another op
     module's private attribute."""
     path = OPS / f"{module}.py"
     imports = list(_imports(path))
@@ -109,7 +111,7 @@ def test_op_modules_reach_the_libraries_only_through_cuda_libs(module):
     for mod, name in imports:
         if mod and mod.startswith("moca_tpu_torch.ops") and name:
             assert not name.startswith("_"), (mod, name)
-        if module in ("norms", "geglu"):
+        if module in ("norms", "geglu", "moca_scan"):
             assert "flash_attention" not in (mod or "") and name != "flash_attention"
     aliases = {alias.asname or alias.name for node in ast.walk(ast.parse(path.read_text()))
                if isinstance(node, ast.ImportFrom) and node.module == "moca_tpu_torch.ops"
@@ -121,11 +123,12 @@ def test_op_modules_reach_the_libraries_only_through_cuda_libs(module):
 
 
 def test_one_reset_empties_every_tally():
-    """K1-K4, both norms and GEGLU are registered once each; the attention
-    module's `reset_launch_counts` (which the benchmark calls) is the one
-    reset, and empties all seven."""
+    """K1-K4, both norms, GEGLU and the MoCA scan are registered once each;
+    the attention module's `reset_launch_counts` (which the benchmark calls)
+    is the one reset, and empties all eight."""
     wrappers = {tfa.flash_attention, tfa.packed_attention, tfa.fused_qkv_attention,
-                tfa.flash_attention_onepass, tn.group_norm, tn.layer_norm, tg.geglu}
+                tfa.flash_attention_onepass, tn.group_norm, tn.layer_norm, tg.geglu,
+                tms.moca_scan}
     assert set(cuda_libs.TALLIED) == wrappers and len(cuda_libs.TALLIED) == len(wrappers)
     assert tfa.KERNELS == (tfa.flash_attention, tfa.packed_attention,
                            tfa.fused_qkv_attention, tfa.flash_attention_onepass)
